@@ -6,21 +6,39 @@
 Phases, each of which exits non-zero on failure:
   1. print the card (nvidia-smi) and build the CUDA kernels from csrc/;
   2. hold each kernel against its plain PyTorch version on the card, at every
-     shape the 256px generator gives it and at ragged shapes;
+     shape the 256px generator gives it and at ragged shapes; the same for
+     masked_scale (the epilogue's backward) at every epilogue shape of the
+     11x student at batch 16 and path batch 8;
   3. drive the generate path (mean latent, truncation 0.5, batch 16) of the
      full-width 256px generator, weights drawn from seed 0, and check that it
      launched blur4 6 times and the fused epilogue 13 times; then hold a
      batch of 2 on the card against the same module on the CPU;
   4. run ``python -m content_aware_gan_compression_torch.generate`` on a
      seeded .npz checkpoint and check the PNG grid;
-  5. time each kernel at its largest generator shape against its bound, its
-     plain version and (blur4) one PyTorch library call, and the generator's
-     images/s.
+  5. hold the first and second derivatives through each autograd Function on
+     the card (blur4 at the generator's and the discriminator's shapes and
+     pads, the epilogue at the student's shapes) against the same function
+     built from the plain versions;
+  6. drive the retraining path: the port's Trainer with the 11x student, the
+     full-width teacher and D at 256px, batch 16, iterations 0-4 (R1 at 0,
+     path length at 0 and 4), and check every loss is finite and each phase
+     launched each kernel, forward and backward, as often as the shapes
+     require (train_phase_launches);
+  7. one iteration at 64px, batch 4, TF32 off, on the card and on the CPU,
+     each against the CPU in float64: losses and parameter gradients of
+     each phase;
+  8. run ``python -m content_aware_gan_compression_torch.train`` for 2
+     iterations at 256px on a seeded uint8 cache, then resume it;
+  9. time the kernels against their bounds, their plain versions and one
+     PyTorch library call each, the generator's images/s, and the training
+     iterations/s over one cadence window of 16 iterations, with its peak
+     memory and where its device time goes.
 The last lines are a {"kernels": [...]} JSON line, the card's name and power
 limit, and {"ok": true, "device": {...}}. Needs a CUDA card; without one it
 exits non-zero and prints no result.
 """
 
+import contextlib
 import json
 import os
 import shutil
@@ -30,6 +48,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -37,6 +56,10 @@ PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_FP32_FLOP_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 BATCH = 16
 SIZE = 256
+PATH_BATCH = 8
+# the 11x student: int(c * 0.7) channels removed from every layer of the
+# 256px generator's default net_shape (the JAX package's pruning rule)
+STUDENT_SHAPE = (154,) * 10 + (77, 77, 39, 39)
 
 
 def fail(msg):
@@ -70,19 +93,21 @@ def time_ms(fn, iters=20, warmup=3):
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def profile_forward(fn, iters=3, top=10):
-    """Where a forward's device time goes: torch.profiler over ``iters``
-    calls; each kernel's share of the summed kernel time, the blur4 and
-    epilogue kernels' shares, and the device's busy share of the window."""
+def profile_forward(fn, iters=3, top=10, inference=True):
+    """Where a window's device time goes: torch.profiler over ``iters``
+    calls of ``fn(i)``; each kernel's share of the summed kernel time, the
+    hand-written kernels' shares, and the device's busy share of the window
+    (host clock). ``fn`` is called once before the window."""
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.inference_mode():
-        fn()
+    mode = torch.inference_mode() if inference else contextlib.nullcontext()
+    with mode:
+        fn(0)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            for _ in range(iters):
-                fn()
+            for i in range(iters):
+                fn(i)
             torch.cuda.synchronize()
             window_us = (time.perf_counter() - t0) * 1e6
     kernels = [(e.key, e.self_device_time_total) for e in prof.key_averages()
@@ -92,9 +117,10 @@ def profile_forward(fn, iters=3, top=10):
         return "not measured: the profiler recorded no device time"
     kernels.sort(key=lambda kt: -kt[1])
     share = lambda word: sum(t for k, t in kernels if word in k) / total  # noqa: E731
-    return {"kernel_ms_per_forward": total / iters / 1e3,
+    return {"kernel_ms_per_call": total / iters / 1e3,
             "busy_share": total / window_us,
             "blur4_share": share("blur4"), "epilogue_share": share("fnbl_"),
+            "masked_scale_share": share("masked_scale"),
             "top": [[k[:80], round(t / total, 4)] for k, t in kernels[:top]]}
 
 
@@ -119,6 +145,99 @@ def generator_layer_shapes():
     return blur, fused
 
 
+def train_phase_launches(log_size):
+    """Kernel launches of each training phase at a resolution of 2**log_size.
+    k = log_size - 2 is both the generator's number of up-blurs and the
+    discriminator's number of ResBlocks (two blurs each); e = 2*log_size - 3
+    is the generator's number of epilogues. PERF.md derives each entry."""
+    k, e = log_size - 2, 2 * log_size - 3
+    zero = {"blur4": 0, "blur4_backward": 0, "fused_noise_bias_lrelu": 0, "masked_scale": 0}
+    return {
+        # student forward without grad; D forward on fake and on real, and back
+        "d": {**zero, "blur4": k + 4 * k, "blur4_backward": 4 * k,
+              "fused_noise_bias_lrelu": e},
+        # D forward on real; R1's backward; its backward, which also runs
+        # back through the forward (the minibatch stddev is not linear)
+        "d_reg": {**zero, "blur4": 2 * k, "blur4_backward": 6 * k},
+        # teacher and student forward, D forward; back through D and student
+        "g": {"blur4": 4 * k, "blur4_backward": 3 * k, "fused_noise_bias_lrelu": 2 * e,
+              "masked_scale": e},
+        # student forward; the path-length grad; its backward, and back
+        # through the forward
+        "g_reg": {"blur4": k, "blur4_backward": 3 * k, "fused_noise_bias_lrelu": e,
+                  "masked_scale": 3 * e},
+        "ema": zero,
+    }
+
+
+def to_device(obj, dev):
+    if isinstance(obj, torch.Tensor):
+        return obj.to(dev)
+    if isinstance(obj, dict):
+        return {k: to_device(v, dev) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [to_device(v, dev) for v in obj]
+    return obj
+
+
+def student_epilogue_shapes(batch, net_shape=STUDENT_SHAPE):
+    return [(batch, 4, 4, net_shape[1])] + [
+        (batch, 2 ** ((i + 5) // 2), 2 ** ((i + 5) // 2), net_shape[i + 1])
+        for i in range(1, len(net_shape) - 1)]
+
+
+def discriminator_blur_cases():
+    """(input shape, pad) of every blur of the 256px D: each ResBlock blurs
+    its input with pad (1,1) for the skip and its conv1 output with (2,2)."""
+    from content_aware_gan_compression_torch.models import DiscriminatorConfig
+
+    ch = DiscriminatorConfig(size=SIZE).channels()
+    return [((BATCH, SIZE >> i, SIZE >> i, ch[SIZE >> i]), pad)
+            for i in range(int(np.log2(SIZE)) - 2) for pad in ((2, 2), (1, 1))]
+
+
+def write_train_checkpoints(work, size):
+    """Seeded student.npz {'g', 'g_ema'} (the int(c*0.7) rule) and
+    teacher.npz {'g_ema'} (full width) at ``size``."""
+    from content_aware_gan_compression_torch.models import (
+        Generator, GeneratorConfig, default_net_shape)
+    from content_aware_gan_compression_torch.utils import save_checkpoint
+
+    student_shape = tuple(c - int(c * 0.7) for c in default_net_shape(size))
+    student = Generator(GeneratorConfig(size=size, net_shape=student_shape), device="cpu",
+                        generator=torch.Generator().manual_seed(0)).state_dict()
+    teacher = Generator(GeneratorConfig(size=size), device="cpu",
+                        generator=torch.Generator().manual_seed(1)).state_dict()
+    paths = (os.path.join(work, f"student{size}.npz"), os.path.join(work, f"teacher{size}.npz"))
+    save_checkpoint(paths[0], {"g": student, "g_ema": student},
+                    metadata={"size": size, "seed": 0})
+    save_checkpoint(paths[1], {"g_ema": teacher}, metadata={"size": size, "seed": 1})
+    return paths
+
+
+def train_config(size, batch, student, teacher, **kw):
+    """The retraining configuration: TrainConfig defaults with the KD terms
+    the CLI keeps when no BiSeNet and VGG weights are present (KD-L1)."""
+    from content_aware_gan_compression_torch.train import TrainConfig
+
+    return TrainConfig(generated_img_size=size, batch_size=batch, ckpt=student,
+                       teacher=teacher, content_aware_KD=False, kd_lpips_lambda=0.0, **kw)
+
+
+def phase_counter(store):
+    """A Trainer phase hook: the launch counts of each phase, then reset."""
+    from content_aware_gan_compression_torch.ops.cuda import counts, reset_counts
+
+    def hook(name):
+        store.append((name, counts()))
+        reset_counts()
+    return hook
+
+
+def max_rel_err(got, want):
+    return (got - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
+
+
 def main():
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -129,8 +248,9 @@ def main():
     from content_aware_gan_compression_torch.models import Generator, GeneratorConfig, stylegan2
     from content_aware_gan_compression_torch.ops import make_kernel
     from content_aware_gan_compression_torch.ops.cuda import (
-        blur4, blur4_plain, build, correlation_taps, fused_noise_bias_lrelu,
-        fused_noise_bias_lrelu_plain)
+        blur4, blur4_plain, build, correlation_taps, counts, fused_noise_bias_lrelu,
+        fused_noise_bias_lrelu_plain, masked_scale, masked_scale_plain, reset_counts)
+    from content_aware_gan_compression_torch.train import Trainer
     from content_aware_gan_compression_torch.utils import save_checkpoint
 
     dev = torch.device("cuda")
@@ -184,6 +304,22 @@ def main():
             fail(f"fused_noise_bias_lrelu {shape}: max_abs_err {err} > tol {tol}")
         fused_err = max(fused_err, err)
     detail("fused_vs_plain", cases=len(fused_cases), max_abs_err=fused_err,
+           tolerance="1e-6 * max|plain| per case")
+
+    ms_cases = student_epilogue_shapes(BATCH) + student_epilogue_shapes(PATH_BATCH) + [
+        (2, 5, 7, 3), (3, 9, 9, 39), (2, 6, 6, 130)]
+    ms_err = 0.0
+    for shape in ms_cases:
+        g_in = torch.randn(shape, generator=rng, device=dev)
+        out = torch.randn(shape, generator=rng, device=dev)
+        out.view(-1)[:3] = 0.0  # the mask is 1 at exactly 0, as in JAX
+        got, want = masked_scale(g_in, out), masked_scale_plain(g_in, out)
+        torch.cuda.synchronize()
+        err, tol = (got - want).abs().max().item(), 1e-6 * want.abs().max().item()
+        if not err <= tol:
+            fail(f"masked_scale {shape}: max_abs_err {err} > tol {tol}")
+        ms_err = max(ms_err, err)
+    detail("masked_scale_vs_plain", cases=len(ms_cases), max_abs_err=ms_err,
            tolerance="1e-6 * max|plain| per case")
 
     # -- 3. the generate path at full width ---------------------------------
@@ -262,7 +398,199 @@ def main():
         fail(f"grid PNG {width}x{height}, want {want_side}x{want_side}")
     shutil.rmtree(work)
 
-    # -- 5. times on the card ---------------------------------------------------
+    # -- 5. backward and double backward against the plain versions -----------
+    def twin(fn_kernel, fn_plain, args):
+        """d sum(f^3) and d ||d sum(f^3)||^2 in every input that needs a
+        gradient, through the Function on the card and through the plain
+        version under autograd; the largest error relative to the plain
+        version's largest value."""
+        worst = 0.0
+        results = []
+        for fn in (fn_kernel, fn_plain):
+            xs = [a.detach().clone().requires_grad_(a.requires_grad) for a in args]
+            wrt = [x for x in xs if x.requires_grad]
+            grads = torch.autograd.grad(fn(*xs).pow(3).sum(), wrt, create_graph=True)
+            second = torch.autograd.grad(sum(t.pow(2).sum() for t in grads), wrt)
+            results.append([t.detach() for t in (*grads, *second)])
+        for a, b in zip(*results):
+            worst = max(worst, max_rel_err(a, b))
+        return worst
+
+    k_asym = torch.arange(16, dtype=torch.float32).reshape(4, 4) / 120  # flip != itself
+    bw_cases = [((BATCH, 2 ** r + 1, 2 ** r + 1, STUDENT_SHAPE[2 * (r - 2)]), (1, 1), 4.0)
+                for r in range(3, int(np.log2(SIZE)) + 1)] + [(shape, pad, 1.0) for shape, pad in
+                                          discriminator_blur_cases()]
+    reset_counts()
+    bw_blur_err = 0.0
+    for shape, pad, gain in bw_cases:
+        x = torch.randn(shape, generator=rng, device=dev, requires_grad=True)
+        err = twin(lambda x: blur4(x, k_asym, pad, gain),
+                   lambda x: blur4_plain(x, correlation_taps(k_asym, gain), pad), [x])
+        if not err <= 1e-5:
+            fail(f"blur4 backward {shape} pad {pad}: relative error {err} > 1e-5")
+        bw_blur_err = max(bw_blur_err, err)
+    bw_fused_err = 0.0
+    for shape in student_epilogue_shapes(BATCH):
+        args = [torch.randn(shape, generator=rng, device=dev, requires_grad=True),
+                torch.randn((shape[0], *shape[1:3], 1), generator=rng, device=dev),
+                0.5 * torch.randn(shape[3], generator=rng, device=dev),
+                torch.tensor([0.7], device=dev)]
+        args[2].requires_grad_(True)
+        args[3].requires_grad_(True)
+        err = twin(fused_noise_bias_lrelu, fused_noise_bias_lrelu_plain, args)
+        if not err <= 1e-5:
+            fail(f"epilogue backward {shape}: relative error {err} > 1e-5")
+        bw_fused_err = max(bw_fused_err, err)
+    torch.cuda.synchronize()
+    bw_counts = counts()
+    detail("backward_vs_plain", blur4_cases=len(bw_cases), blur4_max_rel_err=bw_blur_err,
+           epilogue_cases=len(STUDENT_SHAPE) - 1, epilogue_max_rel_err=bw_fused_err,
+           launches=bw_counts,
+           tolerance="1e-5 of the plain version's largest value, first and second order")
+    if (bw_counts["blur4_backward"] < 2 * len(bw_cases)
+            or bw_counts["masked_scale"] < 2 * (len(STUDENT_SHAPE) - 1)):
+        fail(f"backward phase did not go through the kernels: {bw_counts}")
+
+    # -- 6. the retraining path at 256px: 11x student, full teacher and D -----
+    work = os.path.join(REPO, "build", "chip_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    student, teacher = write_train_checkpoints(work, SIZE)
+    cfg256 = train_config(SIZE, BATCH, student, teacher)
+    trainer = Trainer(cfg256, device=dev)
+    if trainer.g.config.net_shape != STUDENT_SHAPE:
+        fail(f"student net_shape {trainer.g.config.net_shape}")
+    reals = np.random.RandomState(0).randint(0, 256, (4, BATCH, SIZE, SIZE, 3), dtype=np.uint8)
+    want_phase = train_phase_launches(int(np.log2(SIZE)))
+    torch.backends.cudnn.allow_tf32 = False
+    mpl = torch.zeros((), device=dev)
+    phases, train_metrics, iter_s = [], [], []
+    reset_counts()
+    for it in range(5):
+        t0 = time.time()
+        m, mpl = trainer.step(it, reals[it % 4], mpl, phase_hook=phase_counter(phases))
+        torch.cuda.synchronize()
+        iter_s.append(round(time.time() - t0, 3))
+        train_metrics.append({k: v.item() for k, v in m.items()})
+    train_launches = {}
+    for name, c in phases:
+        want = {k: v for k, v in want_phase[name].items()}
+        got = {k: c[k] for k in want}
+        if got != want:
+            fail(f"train phase {name} launched {got}, want {want}")
+        for k, v in c.items():
+            train_launches[k] = train_launches.get(k, 0) + v
+    finite = all(np.isfinite(v) for m in train_metrics for v in m.values())
+    detail("train_path", size=SIZE, batch=BATCH, path_batch=PATH_BATCH,
+           student=list(STUDENT_SHAPE), phases=[n for n, _ in phases],
+           launches=train_launches, per_phase_want={k: want_phase[k] for k in want_phase},
+           iteration_seconds=iter_s, metrics=train_metrics, finite=finite, tf32=False)
+    if not finite:
+        fail("a training loss is not finite")
+    for need in ("d_reg", "g", "g_reg"):
+        if not any(n == need for n, _ in phases):
+            fail(f"phase {need} did not run")
+
+    # -- 7. one iteration at 64px on the card against the CPU ------------------
+    # The path-length and R1 gradients are grads of grads, and fp32 rounds
+    # them by up to 1% on either device. So the card and the CPU, both in
+    # fp32, are each held against the same iteration in float64 on the CPU:
+    # per phase, the card may be no further from it than twice the CPU's
+    # own fp32 distance, plus 1e-4.
+    s_small, t_small = write_train_checkpoints(work, 64)
+    # lr 0: Adam's first step is about lr * sign(g), so a weight whose
+    # gradient is near 0 would move apart on the two devices and every later
+    # phase would start from other weights; with lr 0 each phase compares
+    # the same computation on the same weights
+    cfg64 = train_config(64, 4, s_small, t_small, init_lr=0.0)
+    runs = {"cpu": Trainer(cfg64, device="cpu"), "card": Trainer(cfg64, device=dev),
+            "f64": Trainer(cfg64, device="cpu")}
+    for module in (runs["f64"].g, runs["f64"].d, runs["f64"].teacher):
+        module.double()
+    draws = runs["cpu"].draw(0)
+    real64 = torch.from_numpy(np.random.RandomState(1).randint(
+        0, 256, (4, 64, 64, 3), dtype=np.uint8)).float() / 127.5 - 1.0
+    trained = {"d": "d", "d_reg": "d", "g": "g", "g_reg": "g"}
+    results = {}
+    for key, tr in runs.items():
+        dtype = torch.float64 if key == "f64" else torch.float32
+        store = results[key] = {}
+
+        def hook(name, store=store, tr=tr):
+            if name in trained:
+                store[name] = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+                               .detach().cpu().double()
+                               for n, p in getattr(tr, trained[name]).named_parameters()}
+        cast = to_device(draws, tr.device)
+        if key == "f64":
+            cast = {ph: {k: ([t.double() for t in v] if isinstance(v, list)
+                             else v.double() if v.is_floating_point() else v)
+                         for k, v in d.items()} for ph, d in cast.items()}
+        metrics, _ = tr.step(0, real64.to(tr.device, dtype), torch.zeros((), device=tr.device,
+                                                                          dtype=dtype),
+                             draws=cast, phase_hook=hook)
+        store["losses"] = {k: v.item() for k, v in metrics.items()}
+
+    def distance(key):
+        losses = max(abs(v - results["f64"]["losses"][k]) / max(abs(results["f64"]["losses"][k]),
+                                                                1e-6)
+                     for k, v in results[key]["losses"].items())
+        grads = {ph: max(max_rel_err(results[key][ph][n], g)
+                         for n, g in results["f64"][ph].items()) for ph in trained}
+        return {"losses": losses, **grads}
+
+    cpu_err, card_err = distance("cpu"), distance("card")
+    detail("train_cuda_vs_cpu", size=64, batch=4, tf32=False, lr=0.0,
+           card_vs_float64=card_err, cpu_vs_float64=cpu_err,
+           measure="largest |a-b| / max|float64| over each phase's parameter tensors",
+           tolerance="card <= 2 * cpu + 1e-4, per phase and for the losses")
+    bad = {k: (card_err[k], cpu_err[k]) for k in card_err
+           if not card_err[k] <= 2 * cpu_err[k] + 1e-4}
+    if bad:
+        fail(f"training on the card vs float64 on the CPU: {bad}")
+    del runs, results
+
+    # -- 8. the train CLI: two iterations, then a resume -----------------------
+    cache = os.path.join(work, "ffhq256_seeded.npy")
+    np.save(cache, np.random.RandomState(2).randint(0, 256, (32, SIZE, SIZE, 3), dtype=np.uint8))
+    base = [sys.executable, "-m", "content_aware_gan_compression_torch.train", "--path", cache,
+            "--size", str(SIZE), "--teacher_ckpt", teacher, "--batch_size", str(BATCH),
+            "--n_sample", "4", "--val_sample_freq", "1", "--model_save_freq", "1"]
+    cli = {}
+    for label, extra in (("train", ["--ckpt", student, "--iter", "2"]),
+                         ("resume", ["--load_train_state", "True", "--iter", "3"])):
+        root = os.path.join(work, f"cli_{label}")
+        if label == "resume":
+            extra = ["--ckpt", os.path.join(cli["train"]["exp"], "ckpt", "000001.npz"), *extra]
+        t0 = time.time()
+        proc = subprocess.run([*base, *extra, "--exp_root", root], cwd=REPO,
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            fail(f"train CLI ({label}) rc {proc.returncode}: {proc.stderr[-3000:]}")
+        (exp,) = [os.path.join(root, d) for d in os.listdir(root) if d.startswith("Exp_")]
+        with open(os.path.join(exp, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        cli[label] = {"exp": exp, "seconds": round(time.time() - t0, 3),
+                      "iters": [r["iter"] for r in recs],
+                      "finite": all(np.isfinite(v) for r in recs for v in r.values()),
+                      "samples": sorted(os.listdir(os.path.join(exp, "sample"))),
+                      "ckpts": sorted(os.listdir(os.path.join(exp, "ckpt")))}
+    detail("train_cli", **{k: {kk: vv for kk, vv in v.items() if kk != "exp"}
+                            for k, v in cli.items()})
+    if (cli["train"]["iters"] != [0, 1] or cli["resume"]["iters"] != [2]
+            or not cli["train"]["finite"] or not cli["resume"]["finite"]
+            or "000001.npz" not in cli["train"]["ckpts"]
+            or "000001.png" not in cli["train"]["samples"]
+            or "000002.npz" not in cli["resume"]["ckpts"]):
+        fail(f"train CLI: {cli}")
+    with open(os.path.join(cli["train"]["exp"], "sample", "000001.png"), "rb") as f:
+        head = f.read(24)
+    if head[:8] != b"\x89PNG\r\n\x1a\n" or struct.unpack(">II", head[16:24]) != (
+            2 + 2 * (SIZE + 2),) * 2:
+        fail("train CLI sample grid is not the expected PNG")
+    shutil.rmtree(work)
+
+    # -- 9. times on the card ---------------------------------------------------
     b_shape = blur_shapes[-1]
     x = torch.randn(b_shape, generator=rng, device=dev)
     taps = correlation_taps(k4, 4.0)
@@ -304,24 +632,98 @@ def main():
                                    noise=noise), iters=10, warmup=2)
         rates[label] = {"ms_per_batch": ms, "images_per_s": BATCH * 1e3 / ms}
         rates[label]["device_time"] = profile_forward(
-            lambda: g([z], truncation=0.5, truncation_latent=mean_latent, noise=noise))
+            lambda i: g([z], truncation=0.5, truncation_latent=mean_latent, noise=noise))
     torch.backends.cudnn.allow_tf32 = False
     detail("generator_rate", size=SIZE, batch=BATCH, dtype="float32", **rates,
            note="pytorch_defaults: cuDNN TF32 on, matmul TF32 off")
+
+    # blur4 at the discriminator's largest shape, pad (2,2)
+    d_shape = (BATCH, SIZE, SIZE, 128)
+    x = torch.randn(d_shape, generator=rng, device=dev)
+    taps1 = correlation_taps(k4, 1.0)
+    n_out = BATCH * (SIZE + 1) * (SIZE + 1) * 128
+    d_blur_flops = 2 * BATCH * 128 * in_bounds_taps(SIZE, SIZE + 1, 2) ** 2
+    d_blur_bound, d_blur_by = bound(4 * (x.numel() + n_out), d_blur_flops)
+    w_dw1 = k4.flip(0, 1).reshape(1, 1, 4, 4).repeat(128, 1, 1, 1).to(dev)
+    x_nchw = x.permute(0, 3, 1, 2)
+    d_blur = {"shape": list(d_shape), "pad": [2, 2],
+              "ms": time_ms(lambda: blur4(x, k4, (2, 2), 1.0)),
+              "plain_ms": time_ms(lambda: blur4_plain(x, taps1, (2, 2)), iters=5),
+              "bound_ms": d_blur_bound, "bound_by": d_blur_by,
+              "library_ms": time_ms(lambda: torch.nn.functional.conv2d(
+                  x_nchw, w_dw1, padding=2, groups=128))}
+    del x, x_nchw
+
+    # masked_scale at its largest training shape: the student's last conv
+    m_shape = (BATCH, SIZE, SIZE, STUDENT_SHAPE[-1])
+    g_in = torch.randn(m_shape, generator=rng, device=dev)
+    out = torch.randn(m_shape, generator=rng, device=dev)
+    negatives = int((out < 0).sum().item())
+    # per element a compare and the sqrt(2) multiply, and the 0.2 multiply
+    # where out < 0
+    ms_bound, ms_by = bound(12 * out.numel(), 2 * out.numel() + negatives)
+    ms_ms = time_ms(lambda: masked_scale(g_in, out))
+    ms_plain_ms = time_ms(lambda: masked_scale_plain(g_in, out), iters=5)
+    # one ATen pass over the same bytes, without the sqrt(2) (and a > 0 mask)
+    ms_lib_ms = time_ms(lambda: torch.ops.aten.leaky_relu_backward(g_in, out, 0.2, True))
+    del g_in, out
+
+    # -- training rate over one cadence window: iterations 16-31 --------------
+    train_rate = {}
+    window = range(16, 32)  # R1 at 16, path length at 16, 20, 24, 28
+    for label, tf32 in (("tf32_off", False), ("pytorch_defaults", True)):
+        torch.backends.cudnn.allow_tf32 = tf32
+        for it in (1, 2):  # warm-up, no regularizer
+            trainer.step(it, reals[it % 4], mpl)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for it in window:
+            _, mpl = trainer.step(it, reals[it % 4], mpl)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        train_rate[label] = {"iterations_per_s": len(window) / seconds,
+                             "ms_per_iteration": seconds * 1e3 / len(window),
+                             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        state = {"mpl": mpl}
+
+        def one(i, state=state):
+            _, state["mpl"] = trainer.step(window[i % len(window)], reals[i % 4], state["mpl"])
+        train_rate[label]["device_time"] = profile_forward(one, iters=len(window),
+                                                           inference=False)
+        mpl = state["mpl"]
+    torch.backends.cudnn.allow_tf32 = False
+    detail("train_rate", size=SIZE, batch=BATCH, path_batch=PATH_BATCH, dtype="float32",
+           window="iterations 16-31: 16 D and G steps, 1 R1, 4 path length", **train_rate,
+           note="pytorch_defaults: cuDNN TF32 on, matmul TF32 off")
+    del trainer
 
     kernels = [
         {"name": "blur4", "route": "cuda",
          "source": "content_aware_gan_compression_torch/csrc/blur4.cu",
          "replaces": "content_aware_gan_compression_tpu/ops/pallas/upfirdn2d_pallas.py:66",
-         "launches": launches["blur4"], "max_abs_err": blur_err, "ms": blur_ms,
+         "launches": train_launches["blur4"] + train_launches["blur4_backward"],
+         "launches_forward": train_launches["blur4"],
+         "launches_backward": train_launches["blur4_backward"],
+         "launches_generate": launches["blur4"],
+         "max_abs_err": blur_err, "max_rel_err_backward": bw_blur_err, "ms": blur_ms,
          "plain_ms": blur_plain_ms, "bound_ms": blur_bound, "bound_by": blur_by,
-         "library_ms": blur_lib_ms, "shape": list(b_shape)},
+         "library_ms": blur_lib_ms, "shape": list(b_shape), "discriminator": d_blur},
         {"name": "fused_noise_bias_lrelu", "route": "cuda",
          "source": "content_aware_gan_compression_torch/csrc/fused_noise_bias_lrelu.cu",
          "replaces": "content_aware_gan_compression_tpu/ops/pallas/fused_act_pallas.py:50",
-         "launches": launches["fused_noise_bias_lrelu"], "max_abs_err": fused_err,
+         "launches": train_launches["fused_noise_bias_lrelu"],
+         "launches_generate": launches["fused_noise_bias_lrelu"], "max_abs_err": fused_err,
+         "max_rel_err_backward": bw_fused_err,
          "ms": fused_ms, "plain_ms": fused_plain_ms, "bound_ms": fused_bound,
          "bound_by": fused_by, "library_ms": None, "shape": list(f_shape)},
+        {"name": "masked_scale", "route": "cuda",
+         "source": "content_aware_gan_compression_torch/csrc/masked_scale.cu",
+         "replaces": "content_aware_gan_compression_tpu/ops/pallas/fused_act_pallas.py:73",
+         "launches": train_launches["masked_scale"], "max_abs_err": ms_err, "ms": ms_ms,
+         "plain_ms": ms_plain_ms, "bound_ms": ms_bound, "bound_by": ms_by,
+         "library_ms": ms_lib_ms, "library": "aten.leaky_relu_backward (no sqrt(2), mask > 0)",
+         "shape": list(m_shape)},
     ]
     detail("done", seconds=round(time.time() - t_start, 1))
     print(json.dumps({"kernels": kernels}))

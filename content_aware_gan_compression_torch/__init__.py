@@ -5,8 +5,11 @@ A port of ``content_aware_gan_compression_tpu`` (JAX), which stays the
 reference: module names match, so each module's counterpart is found under
 the same path. This package imports neither JAX nor the JAX package.
 
-Ported so far: the generator forward and ``generate``. Entry points run on
-``cuda`` unless the caller passes ``device="cpu"``.
+Ported so far: the generator and ``generate``; the discriminator, the
+losses, the four training steps and the ``Trainer`` with its CLI
+(``python -m content_aware_gan_compression_torch.train``), for the KD-L1
+objective. Entry points run on ``cuda`` unless the caller passes
+``device="cpu"``.
 """
 
 __version__ = "0.1.0"

@@ -2,7 +2,9 @@
 // pad=(p0, p1)) with k a 4x4 kernel (gain already folded in).
 //
 // Replaces the TPU kernel content_aware_gan_compression_tpu/ops/pallas/
-// upfirdn2d_pallas.py:_blur4_padded (forward only). The TPU version pads
+// upfirdn2d_pallas.py:_blur4_padded, forward and backward: the backward
+// (_blur4_bwd) is this kernel again with the taps flipped back and pads
+// (3-p0, 3-p1), launched by ops/cuda/blur4.py:Blur4Fn. The TPU version pads
 // with an XLA op and runs a valid correlation over row tiles with a halo.
 // Here the pad is never materialised: each tap that falls outside the input
 // reads 0 through a bounds check, so the kernel moves only the input once and

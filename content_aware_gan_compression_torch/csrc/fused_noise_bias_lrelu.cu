@@ -3,9 +3,9 @@
 // bias [C], nw a 1-element device tensor.
 //
 // Replaces the TPU kernel content_aware_gan_compression_tpu/ops/pallas/
-// fused_act_pallas.py:_fwd_kernel (forward only). The TPU version takes nw
-// through SMEM; here it is read on the device from the parameter's own
-// pointer, so the host never synchronises to fetch it.
+// fused_act_pallas.py:_fwd_kernel; its backward is csrc/masked_scale.cu. The
+// TPU version takes nw through SMEM; here it is read on the device from the
+// parameter's own pointer, so the host never synchronises to fetch it.
 //
 // Bound on an H100: memory. About 5 flops per element against 8 bytes (x read,
 // out written; noise and bias are 1/C and 1/(B*H*W) of that), so the least

@@ -1,12 +1,16 @@
-"""StyleGAN2 generator (the discriminator comes with the training slice)."""
+"""StyleGAN2 generator and discriminator."""
 
 from .stylegan2 import (
+    Discriminator,
+    DiscriminatorConfig,
     Generator,
     GeneratorConfig,
     default_channels,
     default_net_shape,
+    discriminator_config_from_params,
     net_shape_from_params,
 )
 
-__all__ = ["Generator", "GeneratorConfig", "default_channels", "default_net_shape",
+__all__ = ["Discriminator", "DiscriminatorConfig", "Generator", "GeneratorConfig",
+           "default_channels", "default_net_shape", "discriminator_config_from_params",
            "net_shape_from_params"]

@@ -1,4 +1,5 @@
-"""StyleGAN2 generator in PyTorch (reference model.py:398, Generator).
+"""StyleGAN2 generator and discriminator in PyTorch (reference model.py:398,
+Generator, and model.py:744, Discriminator).
 
 Module names mirror the JAX package's parameter tree, which mirrors the
 reference state dict ('conv1.conv.weight', 'convs.3.activate.bias',
@@ -341,7 +342,8 @@ class Generator(nn.Module):
                 truncation=1.0, truncation_latent=None, noise=None,
                 randomize_noise: bool = True, generator=None,
                 return_latents: bool = False, return_rgb_list: bool = False,
-                return_style_scalars: bool = False, PPL_regularize: bool = False):
+                return_style_scalars: bool = False, PPL_regularize: bool = False,
+                ppl_noise=None, output_format: str = "NCHW"):
         """Generator forward (the JAX package's generator_apply).
 
         Args:
@@ -354,14 +356,26 @@ class Generator(nn.Module):
             ``randomize_noise``, fresh noise is drawn from ``generator``; if
             None and not ``randomize_noise``, the ``noises.noise_*`` buffers.
           generator: a ``torch.Generator`` on this module's device.
+          PPL_regularize: return ``(image, path_lengths)``, where
+            ``path_lengths`` [B] is the per-sample ``||J^T y||`` of the
+            synthesis with respect to the W+ latent (the JAX package's
+            generator_apply, reference model.py:661-666), differentiable in
+            the parameters. ``y = ppl_noise / sqrt(H*W)`` on the NHWC image;
+            ``ppl_noise`` [B, H, W, 3] is a standard normal draw, taken from
+            ``generator`` when not given.
+          output_format: "NCHW" (the reference's) or "NHWC", the synthesis's
+            own layout, which the discriminator and the losses take as it is.
 
-        Returns NCHW images (a list per scale with ``return_rgb_list``), and
-        the W+ latent with ``return_latents``.
+        Returns images (a list per scale with ``return_rgb_list``), and the
+        W+ latent with ``return_latents``.
         """
-        if return_style_scalars or PPL_regularize:
+        if return_style_scalars:
             raise NotImplementedError(
-                "return_style_scalars and PPL_regularize are not ported yet "
-                "(pruning and training slices)")
+                "return_style_scalars is not ported yet (pruning slice)")
+        if output_format not in ("NCHW", "NHWC"):
+            raise ValueError(f"unknown output_format {output_format!r}")
+        to_out = ((lambda t: t) if output_format == "NHWC"
+                  else (lambda t: t.permute(0, 3, 1, 2)))
         cfg = self.config
         if not input_is_latent:
             styles = [self.get_latent(z) for z in styles]
@@ -396,11 +410,196 @@ class Generator(nn.Module):
             latent = torch.where(pos < inject_index, styles[0][:, None, :],
                                  styles[1][:, None, :])
 
+        if PPL_regularize:
+            if not latent.requires_grad:  # W given as a plain tensor
+                latent = latent.detach().requires_grad_(True)
+            image, _ = self.synthesis(latent, noise)
+            if ppl_noise is None:
+                if generator is None:
+                    raise ValueError("PPL_regularize without ppl_noise requires generator")
+                ppl_noise = torch.randn(image.shape, generator=generator, device=image.device)
+            y = ppl_noise / math.sqrt(image.shape[1] * image.shape[2])
+            (grad,) = torch.autograd.grad(image, latent, y, create_graph=True)
+            path_lengths = torch.sqrt(torch.square(grad.float()).sum(2).mean(1))
+            return to_out(image), path_lengths
+
         image, rgb_list = self.synthesis(latent, noise)
         if return_rgb_list:
-            out = [r.permute(0, 3, 1, 2) for r in rgb_list]
+            out = [to_out(r) for r in rgb_list]
         else:
-            out = image.permute(0, 3, 1, 2)
+            out = to_out(image)
         if return_latents:
             return out, latent
         return out
+
+
+# ---------------------------------------------------------------------------
+# Discriminator
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class DiscriminatorConfig:
+    """Discriminator architecture (the JAX package's DiscriminatorConfig).
+    ``channel_max`` clamps the per-resolution channel table; 512 is the
+    reference table."""
+    size: int
+    channel_multiplier: int = 2
+    blur_kernel: tuple[int, ...] = (1, 3, 3, 1)
+    stddev_group: int = 4
+    stddev_feat: int = 1
+    channel_max: int = 512
+
+    @property
+    def log_size(self) -> int:
+        return int(math.log2(self.size))
+
+    def channels(self) -> dict[int, int]:
+        return {k: min(v, self.channel_max)
+                for k, v in default_channels(self.channel_multiplier).items()}
+
+
+class Blur(nn.Module):
+    """The parameter-free 4x4 FIR blur before a stride-2 conv (the blur4
+    kernel on the card); index 0 of a downsampling ConvLayer."""
+
+    def __init__(self, blur_kernel, pad):
+        super().__init__()
+        self.taps = make_kernel(blur_kernel)  # host taps, not state
+        self.pad = pad
+
+    def forward(self, x):
+        return blur(x, self.taps, pad=self.pad)
+
+
+class EqualConv2d(nn.Module):
+    """Equalized-lr conv on NHWC activations (reference model.py:99-128);
+    weight [out, in, k, k]. No bias: in a ConvLayer the activation holds it."""
+
+    def __init__(self, in_ch, out_ch, kernel_size, *, stride=1, padding=0, generator=None):
+        super().__init__()
+        self.weight = nn.Parameter(
+            torch.randn(out_ch, in_ch, kernel_size, kernel_size, generator=generator))
+        self.scale = 1.0 / math.sqrt(in_ch * kernel_size * kernel_size)
+        self.stride = stride
+        self.padding = padding
+
+    def forward(self, x):
+        return _to_nhwc(F.conv2d(x.permute(0, 3, 1, 2), self.weight * self.scale,
+                                 stride=self.stride, padding=self.padding))
+
+
+class BiasLeakyReLU(nn.Module):
+    """Holds a ConvLayer's activation bias [C]; applies fused_leaky_relu."""
+
+    def __init__(self, channels):
+        super().__init__()
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x):
+        return fused_leaky_relu(x, self.bias)
+
+
+class ConvLayer(nn.Sequential):
+    """ConvLayer (reference model.py:670-716; the JAX package's _conv_layer).
+    Indices follow the reference Sequential, so the JAX tree's keys load as
+    they are: with ``downsample`` the blur is index 0, the stride-2 conv 1
+    and the activation 2; without, the conv is 0 and the activation 1. The
+    discriminator uses two forms: activated with a bias, and (the skip) with
+    neither."""
+
+    def __init__(self, in_ch, out_ch, kernel_size, *, downsample=False, bias=True,
+                 activate=True, blur_kernel=(1, 3, 3, 1), generator=None):
+        if activate != bias:
+            raise ValueError("ConvLayer takes activate and bias together or neither")
+        layers = []
+        if downsample:
+            pb = (len(blur_kernel) - 2) + (kernel_size - 1)
+            layers.append(Blur(blur_kernel, ((pb + 1) // 2, pb // 2)))
+            stride, padding = 2, 0
+        else:
+            stride, padding = 1, kernel_size // 2
+        layers.append(EqualConv2d(in_ch, out_ch, kernel_size, stride=stride, padding=padding,
+                                  generator=generator))
+        if activate:
+            layers.append(BiasLeakyReLU(out_ch))
+        super().__init__(*layers)
+
+
+class ResBlock(nn.Module):
+    """Reference model.py:719-741; the JAX package's _res_block."""
+
+    def __init__(self, in_ch, out_ch, blur_kernel=(1, 3, 3, 1), generator=None):
+        super().__init__()
+        self.conv1 = ConvLayer(in_ch, in_ch, 3, blur_kernel=blur_kernel, generator=generator)
+        self.conv2 = ConvLayer(in_ch, out_ch, 3, downsample=True, blur_kernel=blur_kernel,
+                               generator=generator)
+        self.skip = ConvLayer(in_ch, out_ch, 1, downsample=True, activate=False, bias=False,
+                              blur_kernel=blur_kernel, generator=generator)
+
+    def forward(self, x):
+        return (self.conv2(self.conv1(x)) + self.skip(x)) / math.sqrt(2)
+
+
+def minibatch_stddev(x_nhwc, group_size: int, stddev_feat: int):
+    """Minibatch stddev feature (reference model.py:780-791). Samples are
+    grouped with stride B//group (a view(group, -1, ...) over dim 0); the
+    biased std across each group, averaged over H, W and C//feat, is appended
+    as ``stddev_feat`` constant channels."""
+    b, h, w, c = x_nhwc.shape
+    group = min(b, group_size)
+    m = b // group
+    y = x_nhwc.reshape(group, m, h, w, stddev_feat, c // stddev_feat).float()
+    std = torch.sqrt(y.var(dim=0, unbiased=False) + 1e-8)  # [m, H, W, feat, C/feat]
+    std = std.mean(dim=(1, 2, 4))  # [m, feat]
+    # sample g*m + j takes std[j] (the reference's .repeat(group, 1, H, W))
+    std = std.repeat(group, 1)[:, None, None, :].expand(b, h, w, stddev_feat)
+    return torch.cat([x_nhwc, std.to(x_nhwc.dtype)], dim=-1)
+
+
+class Discriminator(nn.Module):
+    """StyleGAN2 discriminator (the JAX package's discriminator_init and
+    discriminator_apply, unpacked form). Takes NHWC images; activations stay
+    NHWC, each convolution taking a channels-last view as in the generator.
+    Weights come from ``generator`` (a CPU ``torch.Generator``) and move to
+    ``device``, which defaults to ``cuda``."""
+
+    def __init__(self, config: DiscriminatorConfig, *, device="cuda", generator=None):
+        super().__init__()
+        device = resolve_device(device)
+        self.config = config
+        ch, bk, g = config.channels(), config.blur_kernel, generator
+        self.convs = nn.ModuleList([ConvLayer(3, ch[config.size], 1, blur_kernel=bk,
+                                              generator=g)])
+        in_ch = ch[config.size]
+        for i in range(config.log_size, 2, -1):
+            out_ch = ch[2 ** (i - 1)]
+            self.convs.append(ResBlock(in_ch, out_ch, bk, generator=g))
+            in_ch = out_ch
+        self.final_conv = ConvLayer(in_ch + config.stddev_feat, ch[4], 3, blur_kernel=bk,
+                                    generator=g)
+        self.final_linear = nn.Sequential(
+            EqualLinear(ch[4] * 4 * 4, ch[4], activation="fused_lrelu", generator=g),
+            EqualLinear(ch[4], 1, generator=g))
+        self.to(device)
+
+    def forward(self, image_nhwc):
+        """[B, H, W, 3] -> scores [B, 1]."""
+        x = image_nhwc
+        for conv in self.convs:
+            x = conv(x)
+        x = minibatch_stddev(x, self.config.stddev_group, self.config.stddev_feat)
+        x = self.final_conv(x)
+        # flatten in NCHW order, so final_linear matches reference checkpoints
+        x = x.permute(0, 3, 1, 2).reshape(x.shape[0], -1)
+        return self.final_linear(x)
+
+
+def discriminator_config_from_params(state_dict, size: int,
+                                     channel_multiplier: int = 2) -> DiscriminatorConfig:
+    """The config of a discriminator state dict: its channel clamp is the
+    widest layer it holds, as in every table ``DiscriminatorConfig`` makes."""
+    widest = max(int(v.shape[0]) for k, v in state_dict.items()
+                 if k.endswith("weight") and v.dim() == 4)
+    return DiscriminatorConfig(size=size, channel_multiplier=channel_multiplier,
+                               channel_max=widest)

@@ -1,9 +1,13 @@
-"""The 4x4 FIR blur: the CUDA kernel ``csrc/blur4.cu`` and its plain version.
+"""The 4x4 FIR blur: the CUDA kernel ``csrc/blur4.cu``, its plain version, and
+``Blur4Fn``, which makes it differentiable to any order.
 
 ``blur4(x, kernel, pad, gain)`` computes ``upfirdn2d(x, kernel * gain, up=1,
 down=1, pad=pad)`` for a 4x4 kernel and pads >= 0 on an NHWC tensor. On a CUDA
 tensor it launches the kernel (or raises); on a CPU tensor it runs
-``blur4_plain``, the same 16 multiply-adds written in PyTorch.
+``blur4_plain``, the same 16 multiply-adds written in PyTorch. Its backward is
+the same blur with the kernel flipped on both axes and pads ``(3-p0, 3-p1)``,
+as the JAX package's ``_blur4_bwd``: it goes through ``Blur4Fn`` again, so R1's
+and the path-length regularizer's grad of grad stay on the kernel.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from . import build
+from .masked_scale import contiguous_grad
 
 
 def correlation_taps(kernel, gain: float = 1.0) -> list[float]:
@@ -49,19 +54,10 @@ def _entry():
     return lib, fn
 
 
-def blur4(x: torch.Tensor, kernel, pad: tuple[int, int], gain: float = 1.0) -> torch.Tensor:
-    """4x4 FIR blur of NHWC ``x`` with pads ``(p0, p1)`` >= 0 on both axes.
-
-    Output ``[B, H+p0+p1-3, W+p0+p1-3, C]``. Forward only: a CUDA input that
-    needs a gradient raises rather than return one that autograd cannot
-    follow.
-    """
-    p0, p1 = int(pad[0]), int(pad[1])
-    if min(p0, p1) < 0:
-        raise ValueError(f"blur4 takes pads >= 0, got {pad}")
-    taps = correlation_taps(kernel, gain)
+def _run(x: torch.Tensor, taps: list[float], pad: tuple[int, int], backward: bool):
+    """One blur: the kernel on a CUDA tensor, the plain version on a CPU one."""
     if x.device.type == "cpu":
-        return blur4_plain(x, taps, (p0, p1))
+        return blur4_plain(x, taps, pad)
     if x.device.type != "cuda":
         raise ValueError(f"blur4 runs on cuda or cpu, not {x.device}")
     if x.dtype != torch.float32:
@@ -69,22 +65,51 @@ def blur4(x: torch.Tensor, kernel, pad: tuple[int, int], gain: float = 1.0) -> t
     if x.dim() != 4 or not x.is_contiguous():
         raise ValueError("blur4 kernel takes a contiguous NHWC [B,H,W,C] tensor, "
                          f"got shape {tuple(x.shape)} strides {x.stride()}")
-    if torch.is_grad_enabled() and x.requires_grad:
-        raise NotImplementedError(
-            "blur4 kernel is forward-only; run under torch.no_grad() or "
-            "torch.inference_mode()")
+    p0, p1 = pad
     b, h, w, c = x.shape
-    ho, wo = h + p0 + p1 - 3, w + p0 + p1 - 3
-    if ho <= 0 or wo <= 0:
-        raise ValueError(f"blur4 output would be empty for input {tuple(x.shape)}, pad {pad}")
-    out = torch.empty((b, ho, wo, c), dtype=x.dtype, device=x.device)
+    out = torch.empty((b, h + p0 + p1 - 3, w + p0 + p1 - 3, c), dtype=x.dtype, device=x.device)
     lib, fn = _entry()
     err = fn(x.data_ptr(), out.data_ptr(), (ctypes.c_float * 16)(*taps),
              b, h, w, c, p0, p1, x.device.index,
              torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, "blur4", err)
-    blur4.launches += 1
+    if backward:
+        blur4.backward_launches += 1
+    else:
+        blur4.launches += 1
     return out
 
 
-blur4.launches = 0  # kernel launches since the last reset; the CPU path adds none
+class Blur4Fn(torch.autograd.Function):
+    """``blur4`` with the JAX package's ``_blur4_core`` VJP. ``kernel`` is the
+    4x4 host tensor before the gain; ``backward`` marks a blur that autograd's
+    backward runs, for the launch counts."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, pad, gain, backward):
+        ctx.kernel, ctx.pad, ctx.gain = kernel, pad, gain
+        return _run(x, correlation_taps(kernel, gain), pad, backward)
+
+    @staticmethod
+    def backward(ctx, g):
+        p0, p1 = ctx.pad
+        dx = Blur4Fn.apply(contiguous_grad(g, blur4), ctx.kernel.flip(0, 1),
+                           (3 - p0, 3 - p1), ctx.gain, True)
+        return dx, None, None, None, None
+
+
+def blur4(x: torch.Tensor, kernel, pad: tuple[int, int], gain: float = 1.0) -> torch.Tensor:
+    """4x4 FIR blur of NHWC ``x`` with pads ``(p0, p1)`` >= 0 on both axes;
+    ``kernel`` a 4x4 host array. Output ``[B, H+p0+p1-3, W+p0+p1-3, C]``."""
+    p0, p1 = int(pad[0]), int(pad[1])
+    if min(p0, p1) < 0:
+        raise ValueError(f"blur4 takes pads >= 0, got {pad}")
+    if x.dim() == 4 and min(x.shape[1], x.shape[2]) + p0 + p1 - 3 <= 0:
+        raise ValueError(f"blur4 output would be empty for input {tuple(x.shape)}, pad {pad}")
+    kernel = torch.as_tensor(kernel, dtype=torch.float32, device="cpu")
+    return Blur4Fn.apply(x, kernel, (p0, p1), float(gain), False)
+
+
+blur4.launches = 0  # forward kernel launches since the last reset; the CPU path adds none
+blur4.backward_launches = 0  # launches made by autograd's backward, of any order
+blur4.grad_copies = 0  # gradients made contiguous before a backward launch

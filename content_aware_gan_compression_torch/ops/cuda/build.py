@@ -20,7 +20,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "cuda"
-SOURCES = ("blur4", "fused_noise_bias_lrelu")
+SOURCES = ("blur4", "fused_noise_bias_lrelu", "masked_scale")
 # -Xptxas -v writes each kernel's registers and spills into the build log
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -1,9 +1,11 @@
 """Fused bias + LeakyReLU + gain (reference op/fused_act.py semantics), and
 the StyledConv epilogue that adds noise injection to it.
 
-``fused_leaky_relu`` and ``scaled_leaky_relu`` are plain PyTorch.
-``fused_noise_bias_lrelu`` is the hand-written CUDA kernel on a CUDA tensor
-and its plain version on a CPU tensor (``ops/cuda/fused_noise_bias_lrelu.py``).
+``fused_leaky_relu`` and ``scaled_leaky_relu`` are plain PyTorch, and
+autograd differentiates them. ``fused_noise_bias_lrelu`` is the hand-written
+CUDA kernel on a CUDA tensor and its plain version on a CPU tensor, with the
+``masked_scale`` kernel as its backward and double backward
+(``ops/cuda/fused_noise_bias_lrelu.py``).
 """
 
 from __future__ import annotations

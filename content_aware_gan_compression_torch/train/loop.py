@@ -1,0 +1,199 @@
+"""The distillation retraining loop (reference train.py:341-452; the JAX
+package's train/loop.py): D and G steps with the lazy regularizers' cadence,
+EMA, reference-format logs, sample grids and checkpoints with optimizer
+state, on one card.
+
+Not ported, because they answer TPU and relay costs that a card on PCIe does
+not have: the input-put probe and controller, the K-step scan window and
+data echoing. In-loop FID waits for the FID port and raises when asked for.
+"""
+
+from __future__ import annotations
+
+import copy
+import os
+import time
+
+import torch
+
+from ..data import infinite_loader, open_dataset
+from ..models.stylegan2 import Discriminator, DiscriminatorConfig, Generator, GeneratorConfig
+from ..utils.checkpoint import (
+    build_discriminator_from_state_dict, build_generator_from_state_dict, load_optimizer_state,
+    load_training_checkpoint, optimizer_state_to_jax, save_checkpoint)
+from ..utils.logging import ExperimentLogger, save_image_grid
+from ..utils.runtime import resolve_device
+from .config import TrainConfig
+from .losses import _NEXT_SLICE
+from .steps import (
+    d_reg_step, d_step, draw_d, draw_g, draw_g_reg, ema_accumulate, g_reg_step, g_step,
+    make_optimizers, prepare_real)
+
+
+class Trainer:
+    """Builds the student, its EMA copy, D, the teacher and the optimizers
+    from a ``TrainConfig``; ``step`` runs one reference iteration and ``run``
+    the loop.
+
+    Weights come from ``cfg.ckpt`` ({'g', 'g_ema'[, 'd', 'g_optim',
+    'd_optim']}) and ``cfg.teacher`` ({'g_ema'}), or are drawn from
+    ``cfg.seed``; D is drawn when the checkpoint has none. Random draws of
+    the loop come from a ``torch.Generator`` on ``device`` seeded with
+    ``cfg.seed``. ``device`` defaults to ``cuda``.
+    """
+
+    def __init__(self, cfg: TrainConfig, *, device="cuda", exp_root=".", lpips_params=None,
+                 parse_params=None, inception_params=None, real_stats=None):
+        if lpips_params is not None or parse_params is not None:
+            raise NotImplementedError(_NEXT_SLICE)
+        if inception_params is not None or real_stats is not None:
+            raise NotImplementedError("in-loop FID is not ported yet")
+        self.cfg = cfg
+        self.device = device = resolve_device(device)
+        self.exp_root = exp_root
+        init = torch.Generator().manual_seed(cfg.seed)
+        size, style, n_mlp = cfg.generated_img_size, cfg.latent, cfg.n_mlp
+
+        # student, g_ema and D (reference train.py:483-496)
+        self.metadata, trees = {}, {}
+        if cfg.ckpt:
+            trees, self.metadata = load_training_checkpoint(cfg.ckpt)
+            self.g = build_generator_from_state_dict(trees["g"], size, style, n_mlp,
+                                                     device=device)
+            self.g_ema = build_generator_from_state_dict(trees["g_ema"], size, style, n_mlp,
+                                                         device=device)
+        else:
+            self.g = Generator(GeneratorConfig(size=size, style_dim=style, n_mlp=n_mlp,
+                                               channel_multiplier=cfg.channel_multiplier),
+                               device=device, generator=init)
+            self.g_ema = copy.deepcopy(self.g)
+        if "d" in trees:
+            self.d = build_discriminator_from_state_dict(trees["d"], size,
+                                                         cfg.channel_multiplier, device=device)
+        else:
+            self.d = Discriminator(DiscriminatorConfig(
+                size=size, channel_multiplier=cfg.channel_multiplier), device=device,
+                generator=init)
+        self.g_ema.requires_grad_(False)
+
+        # teacher (reference train.py:500-506)
+        self.teacher = None
+        if cfg.teacher:
+            t_trees, _ = load_training_checkpoint(cfg.teacher)
+            self.teacher = build_generator_from_state_dict(t_trees["g_ema"], size, style,
+                                                           n_mlp, device=device)
+            self.teacher.requires_grad_(False)
+
+        self.g_opt, self.d_opt = make_optimizers(self.g, self.d, cfg)
+        self.start_iter = 0
+        if cfg.load_train_state and "g_optim" in trees:
+            load_optimizer_state(self.g_opt, self.g, trees["g_optim"])
+            load_optimizer_state(self.d_opt, self.d, trees["d_optim"])
+            if "iter" in self.metadata:
+                self.start_iter = int(self.metadata["iter"]) + 1
+            else:  # the reference parses the iteration out of the file name (train.py:541)
+                try:
+                    self.start_iter = int(cfg.ckpt[-9:-3]) + 1
+                except ValueError:
+                    self.start_iter = 0
+        self.gen = torch.Generator(device).manual_seed(cfg.seed)
+
+    # -------------------------------------------------------------------------
+    def draw(self, iter_idx: int) -> dict:
+        """This iteration's random draws for each phase that runs."""
+        draws = {"d": draw_d(self.gen, self.g, self.cfg),
+                 "g": draw_g(self.gen, self.g, self.cfg, self.teacher)}
+        if iter_idx % self.cfg.g_reg_freq == 0:
+            draws["g_reg"] = draw_g_reg(self.gen, self.g, self.cfg)
+        return draws
+
+    def step(self, iter_idx: int, real_img, mean_path_length, draws=None, phase_hook=None):
+        """One reference iteration (train.py:371-398): D GAN step, R1 every
+        ``d_reg_freq``, G GAN + KD step against the updated D, path length
+        every ``g_reg_freq``, EMA. ``real_img`` is a uint8 [B, H, W, 3] host
+        batch or a float NHWC tensor; ``draws`` defaults to ``draw``'s.
+        ``phase_hook(name)``, if given, runs after each phase ('d', 'd_reg',
+        'g', 'g_reg', 'ema'). Returns (metrics of 0-dim device tensors, the
+        new mean path length)."""
+        cfg = self.cfg
+        real = prepare_real(real_img, self.device)
+        draws = draws if draws is not None else self.draw(iter_idx)
+        hook = phase_hook or (lambda name: None)
+        metrics = d_step(self.g, self.d, self.d_opt, real, draws["d"], cfg)
+        hook("d")
+        if iter_idx % cfg.d_reg_freq == 0:
+            metrics.update(d_reg_step(self.d, self.d_opt, real, cfg))
+            hook("d_reg")
+        metrics.update(g_step(self.g, self.g_opt, self.d, draws["g"], cfg, self.teacher))
+        hook("g")
+        if iter_idx % cfg.g_reg_freq == 0:
+            mean_path_length, m = g_reg_step(self.g, self.g_opt, draws["g_reg"],
+                                             mean_path_length, cfg)
+            metrics.update(m)
+            hook("g_reg")
+        ema_accumulate(self.g_ema, self.g)
+        hook("ema")
+        return metrics, mean_path_length
+
+    # -------------------------------------------------------------------------
+    def save(self, logger: ExperimentLogger, iter_idx: int) -> str:
+        """``ckpt/<iter>.npz`` with both optimizers' state, in the JAX
+        package's format."""
+        path = os.path.join(logger.ckpt_dir, f"{str(iter_idx).zfill(6)}.npz")
+        save_checkpoint(path, {
+            "g": self.g.state_dict(), "d": self.d.state_dict(),
+            "g_ema": self.g_ema.state_dict(),
+            "g_optim": optimizer_state_to_jax(self.g_opt, self.g),
+            "d_optim": optimizer_state_to_jax(self.d_opt, self.d),
+        }, metadata={"iter": iter_idx, "size": self.cfg.generated_img_size,
+                     "net_shape": list(self.g.config.net_shape)})
+        return path
+
+    def run(self, *, max_iters: int | None = None, logger=None, data_seed=None):
+        """The loop from ``start_iter``: one log line per iteration, a sample
+        grid of ``g_ema`` every ``val_sample_freq`` and a checkpoint every
+        ``model_save_freq`` iterations. A step's metrics are fetched after the
+        next step is queued, so the fetch does not stall the card."""
+        cfg = self.cfg
+        logger = logger or ExperimentLogger(self.exp_root)
+        dataset = open_dataset(cfg.data_folder, cfg.generated_img_size)
+        loader = infinite_loader(dataset, cfg.batch_size,
+                                 seed=data_seed if data_seed is not None else cfg.seed)
+        sample_z = torch.randn(cfg.val_sample_num, cfg.latent, generator=self.gen,
+                               device=self.device)
+        mean_path_length = torch.zeros((), device=self.device)
+        last = {"r1": 0.0, "path": 0.0, "path_length": 0.0}
+        end = cfg.training_iters if not max_iters else min(
+            cfg.training_iters, self.start_iter + max_iters)
+
+        def flush(pending):
+            it, t0, keys, packed = pending
+            vals = packed.tolist()
+            last.update(zip(keys, vals[:-1]))
+            last["mean_path_avg"] = vals[-1]
+            logger.log_iteration(it, time.time() - t0, last)
+
+        pending = None
+        for it in range(self.start_iter, end):
+            t0 = time.time()
+            metrics, mean_path_length = self.step(it, next(loader), mean_path_length)
+            keys = sorted(metrics)
+            packed = torch.stack([metrics[k].float() for k in keys]
+                                 + [mean_path_length.float()])
+            if pending is not None:
+                flush(pending)
+            pending = (it, t0, keys, packed)
+            if it % cfg.val_sample_freq == 0 or (it % cfg.model_save_freq == 0 and it > 0):
+                flush(pending)
+                pending = None
+                if it % cfg.val_sample_freq == 0:
+                    with torch.no_grad():
+                        sample = self.g_ema([sample_z], generator=self.gen)
+                    save_image_grid(sample.cpu(), os.path.join(
+                        logger.sample_dir, f"{str(it).zfill(6)}.png"),
+                        nrow=int(cfg.val_sample_num ** 0.5))
+                if it % cfg.model_save_freq == 0 and it > 0:
+                    self.save(logger, it)
+        if pending is not None:
+            flush(pending)
+        return logger

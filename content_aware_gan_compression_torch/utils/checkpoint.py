@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 
 import numpy as np
 import torch
@@ -92,7 +93,10 @@ def save_checkpoint(path: str, trees: dict, metadata: dict | None = None) -> Non
     for name, tree in trees.items():
         keys = []
         for leaf_key, value in pytree_to_torch_state_dict(tree).items():
-            key = name + "/" + leaf_key.replace(".", "/")
+            # optax tree-path keys ('[0].nu[...]') stay whole, as the JAX
+            # package writes them; module paths ('a.b.c') become 'a/b/c'
+            key = name + "/" + (leaf_key if leaf_key.startswith("[")
+                                else leaf_key.replace(".", "/"))
             t = _to_tensor(value).detach().cpu()
             if t.dtype == torch.bfloat16:
                 manifest["dtypes"][key] = "bfloat16"
@@ -158,3 +162,100 @@ def load_generator(path: str, size: int, style_dim: int = 512, n_mlp: int = 8, *
     else:
         sd = load_torch_checkpoint(path)[tree]
     return build_generator_from_state_dict(sd, size, style_dim, n_mlp, device=device)
+
+
+def build_discriminator_from_state_dict(state_dict, size: int, channel_multiplier: int = 2,
+                                        *, device="cuda"):
+    """A ``Discriminator`` holding ``state_dict`` (flat or nested, the JAX
+    tree or a reference one), its widths read off the tensors."""
+    from ..models.stylegan2 import Discriminator, discriminator_config_from_params
+
+    sd = state_dict_from_jax(state_dict)
+    d = Discriminator(discriminator_config_from_params(sd, size, channel_multiplier),
+                      device=device)
+    d.load_state_dict(sd, strict=True)
+    return d
+
+
+# ---------------------------------------------------------------------------
+# optimizer state
+# ---------------------------------------------------------------------------
+#
+# The JAX package saves its optax state keyed by tree path: '[0].count' and
+# "[0].nu['conv1']['conv']['weight']" for every leaf of the parameter tree,
+# which for the generator includes the noise buffers. The port's AdamNoMu
+# keeps the same numbers as param_groups[0]['step'] and
+# state[p]['exp_avg_sq'].
+
+_NU_KEY = re.compile(r"^\[0\]\.nu((?:\['[^']*'\])+)$")
+
+
+def _jax_nu_key(name: str) -> str:
+    return "[0].nu" + "".join(f"['{part}']" for part in name.split("."))
+
+
+def optimizer_state_to_jax(optimizer, module) -> dict[str, torch.Tensor]:
+    """``optimizer``'s state as the JAX package's flat tree for ``module``'s
+    leaves. Buffers (the generator's noise maps) take a zero second moment,
+    which is what JAX holds for leaves that never get a gradient."""
+    params = dict(module.named_parameters())
+    tree = {"[0].count": torch.tensor(optimizer.param_groups[0]["step"], dtype=torch.int32)}
+    for name, value in module.state_dict().items():
+        state = optimizer.state.get(params[name], {}) if name in params else {}
+        # a buffer, or a parameter before the first step: zero
+        nu = state.get("exp_avg_sq", torch.zeros_like(value))
+        tree[_jax_nu_key(name)] = nu.detach().cpu()
+    return tree
+
+
+def load_optimizer_state(optimizer, module, tree) -> None:
+    """Load a saved optimizer state into ``optimizer`` for ``module``'s
+    parameters: the JAX package's flat tree (``optimizer_state_to_jax``'s
+    format; entries of buffers are dropped) or a reference torch Adam
+    ``state_dict`` ({'state', 'param_groups'}, whose first moment the b1 == 0
+    optimizer does not need)."""
+    named = dict(module.named_parameters())
+    if "state" in tree and "param_groups" in tree:
+        order = list(named.values())
+        state = tree["state"]
+        steps = {int(torch.as_tensor(s["step"]).item()) for s in state.values()}
+        if len(steps) > 1:
+            raise ValueError(f"torch optimizer state has parameters at steps {sorted(steps)}")
+        nus = {order[int(i)]: torch.as_tensor(s["exp_avg_sq"]) for i, s in state.items()}
+        step = steps.pop() if steps else 0
+    else:
+        flat = pytree_to_torch_state_dict(tree) if any(
+            isinstance(v, dict) for v in tree.values()) else tree
+        nus, step = {}, None
+        for key, value in flat.items():
+            if key == "[0].count":
+                step = int(_to_tensor(value).item())
+                continue
+            m = _NU_KEY.match(key)
+            if m is None:
+                raise ValueError(f"unknown optimizer state entry {key!r}")
+            name = ".".join(re.findall(r"\['([^']*)'\]", m.group(1)))
+            if name in named:
+                nus[named[name]] = _to_tensor(value)
+        if step is None:
+            raise ValueError("optimizer state has no '[0].count'")
+    missing = [n for n, p in named.items() if p not in nus]
+    if missing:
+        raise ValueError(f"optimizer state lacks {len(missing)} parameters, e.g. {missing[:3]}")
+    for group in optimizer.param_groups:
+        group["step"] = step
+    for p, nu in nus.items():
+        if nu.shape != p.shape:
+            raise ValueError(f"optimizer state shape {tuple(nu.shape)} != parameter "
+                             f"{tuple(p.shape)}")
+        optimizer.state[p]["exp_avg_sq"] = nu.to(device=p.device, dtype=p.dtype).clone()
+
+
+def load_training_checkpoint(path: str) -> tuple[dict, dict]:
+    """Load {'g', 'd', 'g_ema'[, 'g_optim', 'd_optim']} from a ``.npz`` (the
+    JAX package's or the port's) or a reference ``.pt``/``.pth``. Returns
+    (trees, metadata); a ``.pt`` has no metadata."""
+    if path.endswith(".npz"):
+        return load_checkpoint(path)
+    ckpt = load_torch_checkpoint(path)
+    return {k: ckpt[k] for k in ("g", "d", "g_ema", "g_optim", "d_optim") if k in ckpt}, {}

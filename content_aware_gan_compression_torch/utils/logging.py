@@ -1,7 +1,12 @@
-"""Sample-grid images, written as PNG with the standard library alone."""
+"""Experiment logging (the JAX package's utils/logging.py): the reference's
+per-iteration text line (train.py:416-422, read by Util/analysis_util.py's
+regexes) beside a ``metrics.jsonl`` stream with the same fields, and sample
+grids written as PNG with the standard library alone."""
 
 from __future__ import annotations
 
+import datetime
+import json
 import os
 import struct
 import zlib
@@ -49,3 +54,52 @@ def save_image_grid(images_nchw, path: str, nrow: int | None = None,
     arr = (grid.transpose(1, 2, 0) * 255 + 0.5).clip(0, 255).astype(np.uint8)
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     write_png(path, arr)
+
+
+def readable_now() -> str:
+    return datetime.datetime.now().strftime("%Y-%m-%d_%H:%M:%S")
+
+
+class ExperimentLogger:
+    """Writes ``Exp_<ts>/<ts>_training_log.out`` (reference format) and
+    ``metrics.jsonl`` side by side, with ``sample/`` and ``ckpt/`` beside
+    them."""
+
+    def __init__(self, root: str = ".", name: str | None = None):
+        ts = readable_now()
+        self.exp_dir = os.path.join(root, name or f"Exp_{ts}")
+        self.sample_dir = os.path.join(self.exp_dir, "sample")
+        self.ckpt_dir = os.path.join(self.exp_dir, "ckpt")
+        os.makedirs(self.sample_dir, exist_ok=True)
+        os.makedirs(self.ckpt_dir, exist_ok=True)
+        self._txt = open(os.path.join(self.exp_dir, f"{ts}_training_log.out"), "a")
+        self._jsonl = open(os.path.join(self.exp_dir, "metrics.jsonl"), "a")
+
+    def write(self, text: str):
+        self._txt.write(text)
+        self._txt.flush()
+
+    def log_iteration(self, iter_idx: int, train_time: float, m: dict):
+        """One reference-format line and one JSON record. ``m`` keys: d, g,
+        kd_l1_loss, kd_lpips_loss, r1, path, mean_path_avg."""
+        self.write(
+            f"Iter #: {iter_idx} Train Time: {round(train_time, 2)}"
+            f" D_Loss: {round(m.get('d', 0.0), 3)}"
+            f" G_Loss: {round(m.get('g', 0.0), 3)}"
+            f" KD_L1_Loss: {round(m.get('kd_l1_loss', 0.0), 3)}"
+            f" KD_LPIPS_Loss: {round(m.get('kd_lpips_loss', 0.0), 3)}"
+            f" D_Reg: {round(m.get('r1', 0.0), 3)}"
+            f" G_Reg: {round(m.get('path', 0.0), 3)}"
+            f" G_Mean_Path: {round(m.get('mean_path_avg', 0.0), 4)}\n")
+        rec = {"iter": iter_idx, "train_time": train_time}
+        rec.update({k: float(v) for k, v in m.items()})
+        self.log_event(rec)
+
+    def log_event(self, record: dict):
+        """One structured JSONL record with no text twin."""
+        self._jsonl.write(json.dumps(record) + "\n")
+        self._jsonl.flush()
+
+    def close(self):
+        self._txt.close()
+        self._jsonl.close()

@@ -13,8 +13,8 @@ import torch
 from content_aware_gan_compression_torch.models import Generator, GeneratorConfig
 from content_aware_gan_compression_torch.ops import make_kernel
 from content_aware_gan_compression_torch.ops.cuda import (
-    blur4, blur4_plain, correlation_taps, fused_noise_bias_lrelu,
-    fused_noise_bias_lrelu_plain,
+    blur4, blur4_plain, correlation_taps, counts, fused_noise_bias_lrelu,
+    fused_noise_bias_lrelu_plain, masked_scale, masked_scale_plain, reset_counts,
 )
 
 pytestmark = pytest.mark.cuda
@@ -66,15 +66,84 @@ def test_kernels_refuse_what_they_do_not_take(dev):
         blur4(x.transpose(1, 2), k, (1, 1))  # not contiguous NHWC
     with pytest.raises(TypeError):
         blur4(x.half(), k, (1, 1))
-    with pytest.raises(NotImplementedError):
-        blur4(x.requires_grad_(), k, (1, 1))  # forward only
     x = torch.randn(2, 4, 4, 8, device=dev)
     noise, bias, nw = (torch.zeros(2, 4, 4, 1, device=dev), torch.zeros(8, device=dev),
                        torch.zeros(1, device=dev))
     with pytest.raises(ValueError):
         fused_noise_bias_lrelu(x, noise[..., :3, :], bias, nw)
-    with pytest.raises(NotImplementedError):
-        fused_noise_bias_lrelu(x, noise, bias.requires_grad_(), nw)
+    with pytest.raises(TypeError):
+        fused_noise_bias_lrelu(x, noise, bias.double(), nw)
+    with pytest.raises(ValueError):
+        masked_scale(x, x[:1])
+    with pytest.raises(TypeError):
+        masked_scale(x.transpose(1, 2), x.transpose(1, 2).contiguous())
+
+
+@pytest.mark.parametrize("shape,offset", [
+    ((16, 8, 8, 154), 0), ((8, 64, 64, 77), 0), ((4, 32, 32, 39), 0), ((3, 5, 7, 3), 0),
+    ((2, 6, 6, 130), 1),  # 4-byte offset: the scalar path for every element
+])
+def test_masked_scale_kernel_matches_plain(dev, shape, offset):
+    """Bit for bit: the kernel rounds as the plain expression does. Exact
+    zeros in ``out`` take the mask 1, as in JAX."""
+    gen = torch.Generator(dev).manual_seed(2)
+    n = torch.Size(shape).numel()
+    g = torch.randn(n + offset, generator=gen, device=dev)[offset:].view(shape)
+    out = torch.randn(n + offset, generator=gen, device=dev)[offset:].view(shape)
+    out.view(-1)[:5] = 0.0
+    torch.testing.assert_close(masked_scale(g, out), masked_scale_plain(g, out), rtol=0, atol=0)
+
+
+def _plain_twin(fn_kernel, fn_plain, *args):
+    """First and second derivatives of sum(f^3) through the Function on the
+    card and through the plain version under autograd, on the same inputs."""
+    results = []
+    for fn in (fn_kernel, fn_plain):
+        xs = [a.detach().clone().requires_grad_(a.requires_grad) for a in args]
+        y = fn(*xs)
+        wrt = [x for x in xs if x.requires_grad]
+        g = torch.autograd.grad(y.pow(3).sum(), wrt, create_graph=True)
+        gg = torch.autograd.grad(sum(t.pow(2).sum() for t in g), wrt)
+        results.append((g, gg))
+    return results
+
+
+@pytest.mark.parametrize("shape,pad,gain", [
+    ((4, 9, 9, 154), (1, 1), 4.0),  # the student's up-blur
+    ((4, 64, 64, 64), (2, 2), 1.0), ((4, 64, 64, 64), (1, 1), 1.0),  # D's down-blurs
+    ((2, 11, 7, 3), (2, 1), 4.0),
+])
+def test_blur4_backward_matches_plain_to_second_order(dev, shape, pad, gain):
+    """Blur4Fn's backward and double backward launch blur4 again; tolerance
+    1e-5 of the largest gradient (16-tap sums reordered, twice)."""
+    x = torch.randn(shape, generator=torch.Generator(dev).manual_seed(3), device=dev,
+                    requires_grad=True)
+    k = torch.arange(16, dtype=torch.float32).reshape(4, 4) / 120
+    reset_counts()
+    (g, gg), (pg, pgg) = _plain_twin(lambda x: blur4(x, k, pad, gain),
+                                     lambda x: blur4_plain(x, correlation_taps(k, gain), pad), x)
+    assert counts()["blur4"] == 1 and counts()["blur4_backward"] >= 2
+    for a, b in ((g[0], pg[0]), (gg[0], pgg[0])):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * b.abs().max().item())
+
+
+@pytest.mark.parametrize("shape,noise_batch", [((16, 8, 8, 154), 16), ((8, 32, 32, 39), 1)])
+def test_epilogue_backward_matches_plain_to_second_order(dev, shape, noise_batch):
+    """FusedNoiseBiasLReLUFn's backward runs masked_scale, its double
+    backward masked_scale again; dx, dbias, dnw and their second order
+    against autograd of the plain expression (1e-5 of the largest value:
+    the reductions sum in another order)."""
+    gen = torch.Generator(dev).manual_seed(4)
+    x = torch.randn(shape, generator=gen, device=dev, requires_grad=True)
+    noise = torch.randn((noise_batch, *shape[1:3], 1), generator=gen, device=dev)
+    bias = torch.randn(shape[3], generator=gen, device=dev, requires_grad=True)
+    nw = torch.tensor([0.7], device=dev, requires_grad=True)
+    reset_counts()
+    (g, gg), (pg, pgg) = _plain_twin(fused_noise_bias_lrelu, fused_noise_bias_lrelu_plain,
+                                     x, noise, bias, nw)
+    assert counts()["fused_noise_bias_lrelu"] == 1 and counts()["masked_scale"] >= 2
+    for a, b in (*zip(g, pg), *zip(gg, pgg)):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * b.abs().max().item())
 
 
 def test_generator_on_card_launches_the_kernels_and_matches_the_cpu(dev):

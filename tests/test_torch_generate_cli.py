@@ -95,6 +95,9 @@ def test_port_imports_no_jax_at_run_time():
             "import content_aware_gan_compression_torch.generate\n"
             "import content_aware_gan_compression_torch.models, "
             "content_aware_gan_compression_torch.ops, content_aware_gan_compression_torch.utils\n"
+            "import content_aware_gan_compression_torch.train, "
+            "content_aware_gan_compression_torch.train.__main__, "
+            "content_aware_gan_compression_torch.data\n"
             f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")

@@ -139,11 +139,83 @@ def test_randomized_noise_and_mixing_follow_the_generator(pair):
 
 
 def test_unported_outputs_raise(pair):
+    """return_style_scalars (the pruning slice) still raises; PPL_regularize
+    is ported and returns the NHWC-y path lengths."""
     _, _, g = pair
     z = torch.zeros(1, g.config.style_dim)
-    for flag in ("return_style_scalars", "PPL_regularize"):
-        with pytest.raises(NotImplementedError):
-            g([z], randomize_noise=False, **{flag: True})
+    with pytest.raises(NotImplementedError):
+        g([z], randomize_noise=False, return_style_scalars=True)
+    image, lengths = g([z], randomize_noise=False, PPL_regularize=True,
+                       generator=torch.Generator().manual_seed(0))
+    assert image.shape == (1, 3, 32, 32) and lengths.shape == (1,)
+
+
+def _grads_close(module, jax_grads, rtol):
+    want = state_dict_from_jax(jax.tree_util.tree_map(np.asarray, jax_grads))
+    for name, p in module.named_parameters():
+        got = p.grad if p.grad is not None else torch.zeros_like(p)
+        scale = float(want[name].abs().max()) or 1.0
+        np.testing.assert_allclose(got.numpy(), want[name].numpy(), rtol=0,
+                                   atol=rtol * scale, err_msg=name)
+
+
+def test_parameter_gradients_match(pair):
+    """Gradients of a weighted image sum in every parameter, two mixed
+    styles: the backward runs Blur4Fn and the epilogue's MaskedScaleFn.
+    Tolerance 1e-4 of each tensor's largest gradient (reordered fp32 sums)."""
+    jcfg, params, g = pair
+    rng = np.random.RandomState(7)
+    z = [rng.randn(3, jcfg.style_dim).astype(np.float32) for _ in range(2)]
+    noise = _noise(jcfg, 3, 8)
+    w = rng.randn(3, 3, 32, 32).astype(np.float32)
+
+    def loss_j(p):
+        img = generator_apply(p, jcfg, _j(z), inject_index=jnp.asarray(2), noise=_j(noise))
+        return jnp.sum(img * w)
+
+    want = jax.jit(jax.grad(loss_j))(params)
+    g.zero_grad(set_to_none=True)
+    (g(_t(z), inject_index=torch.tensor(2), noise=_t(noise)) * torch.from_numpy(w)).sum().backward()
+    _grads_close(g, want, 1e-4)
+    g.zero_grad(set_to_none=True)
+
+
+def test_path_lengths_and_their_gradients_match(pair):
+    """PPL_regularize with JAX's own y: the path lengths ||J^T y|| and the
+    gradient of their squared spread in every parameter, a grad of grad
+    through the synthesis. Tolerance 1e-4 (lengths) and 2e-4 of each
+    tensor's largest gradient: the second order doubles the reordered sums."""
+    jcfg, params, g = pair
+    rng = np.random.RandomState(9)
+    z = [rng.randn(2, jcfg.style_dim).astype(np.float32) for _ in range(2)]
+    noise = _noise(jcfg, 2, 10)
+    key = jax.random.PRNGKey(3)
+    y = np.asarray(jax.random.normal(key, (2, 32, 32, 3)))
+
+    def loss_j(p):
+        _, lengths = generator_apply(p, jcfg, _j(z), inject_index=jnp.asarray(3),
+                                     noise=_j(noise), PPL_regularize=True, ppl_rng=key)
+        return jnp.sum(jnp.square(lengths - 0.5)), lengths
+
+    (_, want_len), want = jax.jit(jax.value_and_grad(loss_j, has_aux=True))(params)
+    g.zero_grad(set_to_none=True)
+    image, lengths = g(_t(z), inject_index=torch.tensor(3), noise=_t(noise),
+                       PPL_regularize=True, ppl_noise=torch.from_numpy(y))
+    assert image.shape == (2, 3, 32, 32)
+    np.testing.assert_allclose(lengths.detach().numpy(), np.asarray(want_len), rtol=1e-4)
+    torch.square(lengths - 0.5).sum().backward()
+    _grads_close(g, want, 2e-4)
+    g.zero_grad(set_to_none=True)
+
+
+def test_nhwc_output_format(pair):
+    _, _, g = pair
+    z = torch.randn(2, g.config.style_dim, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        nchw = g([z], randomize_noise=False)
+        nhwc = g([z], randomize_noise=False, output_format="NHWC")
+    torch.testing.assert_close(nhwc.permute(0, 3, 1, 2), nchw, rtol=0, atol=0)
+    assert nhwc.is_contiguous()
 
 
 def test_config_and_net_shape_match_jax():
