@@ -6,19 +6,23 @@
 Phases, each of which exits non-zero on failure:
   1. print the card (nvidia-smi) and build the CUDA kernels from csrc/;
   2. hold each kernel against its plain PyTorch version on the card, at every
-     shape the 256px generator gives it and at ragged shapes; the same for
-     masked_scale (the epilogue's backward) at every epilogue shape of the
-     11x student at batch 16 and path batch 8;
+     shape the 256px generator gives it and at ragged shapes (blur4 also at
+     every up-blur of the 11x student at batch 16 and path batch 8, and on a
+     view that is not 16-byte aligned); the same for masked_scale (the
+     epilogue's backward) at every epilogue shape of the 11x student at
+     batch 16 and path batch 8;
   3. drive the generate path (mean latent, truncation 0.5, batch 16) of the
      full-width 256px generator, weights drawn from seed 0, and check that it
-     launched blur4 6 times and the fused epilogue 13 times; then hold a
-     batch of 2 on the card against the same module on the CPU;
+     launched blur4 6 times, all with float4 lanes, and the fused epilogue
+     13 times; then hold a batch of 2 on the card against the same module on
+     the CPU;
   4. run ``python -m content_aware_gan_compression_torch.generate`` on a
      seeded .npz checkpoint and check the PNG grid;
   5. hold the first and second derivatives through each autograd Function on
-     the card (blur4 at the generator's and the discriminator's shapes and
-     pads, the epilogue at the student's shapes) against the same function
-     built from the plain versions;
+     the card (blur4 at the student's up-blurs at batch 16 and 8, the
+     discriminator's shapes and pads and a misaligned view, the epilogue at
+     the student's shapes) against the same function built from the plain
+     versions;
   6. drive the retraining path: the port's Trainer with the 11x student, the
      full-width teacher and D at 256px, batch 16, iterations 0-4 (R1 at 0,
      path length at 0 and 4), and check every loss is finite and each phase
@@ -30,9 +34,10 @@ Phases, each of which exits non-zero on failure:
   8. run ``python -m content_aware_gan_compression_torch.train`` for 2
      iterations at 256px on a seeded uint8 cache, then resume it;
   9. time the kernels against their bounds, their plain versions and one
-     PyTorch library call each, the generator's images/s, and the training
-     iterations/s over one cadence window of 16 iterations, with its peak
-     memory and where its device time goes.
+     PyTorch library call each (blur4 at the generator's, the
+     discriminator's and the student's largest shapes), the generator's
+     images/s, and the training iterations/s over one cadence window of 16
+     iterations, with its peak memory and where its device time goes.
 The last lines are a {"kernels": [...]} JSON line, the card's name and power
 limit, and {"ok": true, "device": {...}}. Needs a CUDA card; without one it
 exits non-zero and prints no result.
@@ -42,7 +47,6 @@ import contextlib
 import json
 import os
 import shutil
-import statistics
 import struct
 import subprocess
 import sys
@@ -52,8 +56,6 @@ import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-PEAK_FP32_FLOP_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 BATCH = 16
 SIZE = 256
 PATH_BATCH = 8
@@ -75,22 +77,6 @@ def card_line():
 
 def detail(phase, **fields):
     print(json.dumps({"phase": phase, **fields}), flush=True)
-
-
-def time_ms(fn, iters=20, warmup=3):
-    """Median milliseconds of ``fn`` on the card, CUDA events around each call."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    pairs = []
-    for _ in range(iters):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        pairs.append((start, end))
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
 def profile_forward(fn, iters=3, top=10, inference=True):
@@ -124,24 +110,15 @@ def profile_forward(fn, iters=3, top=10, inference=True):
             "top": [[k[:80], round(t / total, 4)] for k, t in kernels[:top]]}
 
 
-def bound(nbytes, flops):
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FP32_FLOP_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
-
-
-def in_bounds_taps(n_in, n_out, p0):
-    """Taps of a 4-tap axis that land inside the input, summed over outputs."""
-    return sum(1 for o in range(n_out) for d in range(4) if 0 <= o + d - p0 < n_in)
-
-
 def generator_layer_shapes():
     """(blur4 input shapes, fused-epilogue shapes) of the 256px generator."""
     from content_aware_gan_compression_torch.models import GeneratorConfig
 
     ns = GeneratorConfig(size=SIZE).net_shape
-    blur = [(BATCH, 2 ** r + 1, 2 ** r + 1, ns[2 * (r - 2)]) for r in range(3, 9)]
+    blur = [(BATCH, 2 ** r + 1, 2 ** r + 1, ns[2 * (r - 2)])
+            for r in range(3, int(np.log2(SIZE)) + 1)]
     fused = [(BATCH, 4, 4, ns[1])] + [
-        (BATCH, 2 ** ((i + 5) // 2), 2 ** ((i + 5) // 2), ns[i + 1]) for i in range(1, 13)]
+        (BATCH, 2 ** ((i + 5) // 2), 2 ** ((i + 5) // 2), ns[i + 1]) for i in range(1, len(ns) - 1)]
     return blur, fused
 
 
@@ -151,20 +128,24 @@ def train_phase_launches(log_size):
     discriminator's number of ResBlocks (two blurs each); e = 2*log_size - 3
     is the generator's number of epilogues. PERF.md derives each entry."""
     k, e = log_size - 2, 2 * log_size - 3
-    zero = {"blur4": 0, "blur4_backward": 0, "fused_noise_bias_lrelu": 0, "masked_scale": 0}
+    zero = {"blur4": 0, "blur4_backward": 0, "blur4_vector": 0, "fused_noise_bias_lrelu": 0,
+            "masked_scale": 0}
+    # blur4_vector: the launches with float4 lanes, forward and backward. The
+    # teacher's and D's widths are multiples of 4; the 11x student's (154,
+    # 77, 39) are not, so its blurs take scalar lanes.
     return {
         # student forward without grad; D forward on fake and on real, and back
-        "d": {**zero, "blur4": k + 4 * k, "blur4_backward": 4 * k,
+        "d": {**zero, "blur4": k + 4 * k, "blur4_backward": 4 * k, "blur4_vector": 8 * k,
               "fused_noise_bias_lrelu": e},
         # D forward on real; R1's backward; its backward, which also runs
         # back through the forward (the minibatch stddev is not linear)
-        "d_reg": {**zero, "blur4": 2 * k, "blur4_backward": 6 * k},
+        "d_reg": {**zero, "blur4": 2 * k, "blur4_backward": 6 * k, "blur4_vector": 8 * k},
         # teacher and student forward, D forward; back through D and student
-        "g": {"blur4": 4 * k, "blur4_backward": 3 * k, "fused_noise_bias_lrelu": 2 * e,
-              "masked_scale": e},
+        "g": {"blur4": 4 * k, "blur4_backward": 3 * k, "blur4_vector": k + 2 * k + 2 * k,
+              "fused_noise_bias_lrelu": 2 * e, "masked_scale": e},
         # student forward; the path-length grad; its backward, and back
         # through the forward
-        "g_reg": {"blur4": k, "blur4_backward": 3 * k, "fused_noise_bias_lrelu": e,
+        "g_reg": {**zero, "blur4": k, "blur4_backward": 3 * k, "fused_noise_bias_lrelu": e,
                   "masked_scale": 3 * e},
         "ema": zero,
     }
@@ -184,6 +165,18 @@ def student_epilogue_shapes(batch, net_shape=STUDENT_SHAPE):
     return [(batch, 4, 4, net_shape[1])] + [
         (batch, 2 ** ((i + 5) // 2), 2 ** ((i + 5) // 2), net_shape[i + 1])
         for i in range(1, len(net_shape) - 1)]
+
+
+def student_blur_shapes(batch, net_shape=STUDENT_SHAPE):
+    """blur4 input shapes of the student's up-blurs (C = 154, ..., 77, 39)."""
+    return [(batch, 2 ** r + 1, 2 ** r + 1, net_shape[2 * (r - 2)])
+            for r in range(3, int(np.log2(SIZE)) + 1)]
+
+
+def misaligned(x):
+    """``x`` as a contiguous view 4 bytes into its storage, so not 16-byte
+    aligned; differentiable."""
+    return torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(x.shape)
 
 
 def discriminator_blur_cases():
@@ -244,6 +237,7 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
               file=sys.stderr)
         return 2
+    from content_aware_gan_compression_torch.bench_blur4 import blur4_bound, bound, time_ms
     from content_aware_gan_compression_torch.generate import sample_images
     from content_aware_gan_compression_torch.models import Generator, GeneratorConfig, stylegan2
     from content_aware_gan_compression_torch.ops import make_kernel
@@ -271,13 +265,19 @@ def main():
     rng = torch.Generator(dev).manual_seed(0)
     k4 = make_kernel([1, 3, 3, 1])
     blur_shapes, fused_shapes = generator_layer_shapes()
-    blur_cases = [(s, (1, 1), 4.0) for s in blur_shapes] + [
-        ((3, 13, 9, 3), (2, 1), 1.0), ((2, 17, 11, 12), (2, 2), 4.0),
-        ((2, 10, 15, 130), (1, 1), 1.0), ((1, 7, 7, 130), (2, 1), 4.0),
-        ((2, 9, 8, 12), (1, 1), 4.0), ((3, 11, 13, 3), (2, 2), 1.0)]
+    # (shape, pad, gain, misaligned view)
+    blur_cases = [(s, (1, 1), 4.0, False) for s in blur_shapes + student_blur_shapes(BATCH)
+                  + student_blur_shapes(PATH_BATCH)] + [
+        ((3, 13, 9, 3), (2, 1), 1.0, False), ((2, 17, 11, 12), (2, 2), 4.0, False),
+        ((2, 10, 15, 130), (1, 1), 1.0, False), ((1, 7, 7, 130), (2, 1), 4.0, False),
+        ((2, 9, 8, 12), (1, 1), 4.0, False), ((3, 11, 13, 3), (2, 2), 1.0, False),
+        ((BATCH, 65, 65, 512), (1, 1), 4.0, True), ((BATCH, 129, 129, 39), (2, 2), 1.0, True)]
     blur_err = 0.0
-    for shape, pad, gain in blur_cases:
+    reset_counts()
+    for shape, pad, gain, offset in blur_cases:
         x = torch.randn(shape, generator=rng, device=dev)
+        if offset:
+            x = misaligned(x)
         got = blur4(x, k4, pad, gain)
         want = blur4_plain(x, correlation_taps(k4, gain), pad)
         torch.cuda.synchronize()
@@ -285,8 +285,14 @@ def main():
         if got.shape != want.shape or not err <= tol:
             fail(f"blur4 {shape} pad {pad} gain {gain}: max_abs_err {err} > tol {tol}")
         blur_err = max(blur_err, err)
+    want_vector = sum(s[3] % 4 == 0 and not offset for s, _, _, offset in blur_cases)
+    blur_counts = counts()
     detail("blur4_vs_plain", cases=len(blur_cases), max_abs_err=blur_err,
+           launches=blur_counts["blur4"], vector_launches=blur_counts["blur4_vector"],
            tolerance="1e-5 * max|x| per case")
+    if blur_counts["blur4"] != len(blur_cases) or blur_counts["blur4_vector"] != want_vector:
+        fail(f"blur4 launched {blur_counts}, want {len(blur_cases)} with {want_vector} "
+             "of them float4")
 
     fused_cases = [(s, s[0]) for s in fused_shapes] + [
         ((2, 5, 7, 3), 2), ((2, 6, 6, 130), 1), ((16, 8, 8, 512), 1)]
@@ -343,18 +349,20 @@ def main():
     stylegan2._to_nhwc = counting_to_nhwc
     gen = torch.Generator(dev).manual_seed(0)
     with torch.inference_mode():
-        blur4.launches = fused_noise_bias_lrelu.launches = 0
+        reset_counts()
         mean_latent = g.mean_latent(4096, gen)
         images = sample_images(g, BATCH, 0.5, mean_latent, gen)
         torch.cuda.synchronize()
         launches = {"blur4": blur4.launches,
                     "fused_noise_bias_lrelu": fused_noise_bias_lrelu.launches}
+        generate_vector = blur4.vector_launches
     stylegan2._to_nhwc = to_nhwc
     detail("generate_path", images=list(images.shape), launches=launches,
-           layout_copies=layout_copies, finite=bool(torch.isfinite(images).all()),
-           std=images.float().std().item())
-    if launches != {"blur4": 6, "fused_noise_bias_lrelu": 13}:
-        fail(f"main path launches {launches}, want blur4 6 and fused_noise_bias_lrelu 13")
+           blur4_vector_launches=generate_vector, layout_copies=layout_copies,
+           finite=bool(torch.isfinite(images).all()), std=images.float().std().item())
+    if launches != {"blur4": 6, "fused_noise_bias_lrelu": 13} or generate_vector != 6:
+        fail(f"main path launches {launches}, {generate_vector} of blur4's float4; want "
+             "blur4 6, all float4, and fused_noise_bias_lrelu 13")
     if tuple(images.shape) != (BATCH, 3, SIZE, SIZE) or not torch.isfinite(images).all():
         fail(f"generated images {tuple(images.shape)} not finite or wrong shape")
 
@@ -417,15 +425,19 @@ def main():
         return worst
 
     k_asym = torch.arange(16, dtype=torch.float32).reshape(4, 4) / 120  # flip != itself
-    bw_cases = [((BATCH, 2 ** r + 1, 2 ** r + 1, STUDENT_SHAPE[2 * (r - 2)]), (1, 1), 4.0)
-                for r in range(3, int(np.log2(SIZE)) + 1)] + [(shape, pad, 1.0) for shape, pad in
-                                          discriminator_blur_cases()]
+    # (shape, pad, gain, misaligned view): the view goes in inside the
+    # function, since twin() copies its inputs into fresh (aligned) tensors
+    bw_cases = [(shape, (1, 1), 4.0, False)
+                for shape in student_blur_shapes(BATCH) + student_blur_shapes(PATH_BATCH)] + [
+        (shape, pad, 1.0, False) for shape, pad in discriminator_blur_cases()] + [
+        ((BATCH, 33, 33, 512), (1, 1), 4.0, True), ((PATH_BATCH, 129, 129, 77), (2, 2), 1.0, True)]
     reset_counts()
     bw_blur_err = 0.0
-    for shape, pad, gain in bw_cases:
+    for shape, pad, gain, offset in bw_cases:
         x = torch.randn(shape, generator=rng, device=dev, requires_grad=True)
-        err = twin(lambda x: blur4(x, k_asym, pad, gain),
-                   lambda x: blur4_plain(x, correlation_taps(k_asym, gain), pad), [x])
+        view = misaligned if offset else (lambda t: t)
+        err = twin(lambda x: blur4(view(x), k_asym, pad, gain),
+                   lambda x: blur4_plain(view(x), correlation_taps(k_asym, gain), pad), [x])
         if not err <= 1e-5:
             fail(f"blur4 backward {shape} pad {pad}: relative error {err} > 1e-5")
         bw_blur_err = max(bw_blur_err, err)
@@ -591,21 +603,34 @@ def main():
     shutil.rmtree(work)
 
     # -- 9. times on the card ---------------------------------------------------
-    b_shape = blur_shapes[-1]
-    x = torch.randn(b_shape, generator=rng, device=dev)
-    taps = correlation_taps(k4, 4.0)
-    ho, wo = b_shape[1] - 1, b_shape[2] - 1
-    n_out = b_shape[0] * ho * wo * b_shape[3]
-    blur_flops = 2 * b_shape[0] * b_shape[3] * in_bounds_taps(b_shape[1], ho, 1) \
-        * in_bounds_taps(b_shape[2], wo, 1)
-    blur_bound, blur_by = bound(4 * (x.numel() + n_out), blur_flops)
-    w_dw = (k4 * 4.0).flip(0, 1).reshape(1, 1, 4, 4).repeat(b_shape[3], 1, 1, 1).to(dev)
-    x_nchw = x.permute(0, 3, 1, 2)  # channels-last view, as the port holds it
-    blur_ms = time_ms(lambda: blur4(x, k4, (1, 1), 4.0))
-    blur_plain_ms = time_ms(lambda: blur4_plain(x, taps, (1, 1)), iters=5)
-    blur_lib_ms = time_ms(lambda: torch.nn.functional.conv2d(
-        x_nchw, w_dw, padding=1, groups=b_shape[3]))
-    del x, x_nchw
+    # blur4 at the generator's largest up-blur (whose backward runs at D's
+    # shape and pad below), D's largest conv blur (the other way round) and
+    # the student's largest up-blur (scalar lanes)
+    blur_times = []
+    for shape, pad, gain, role in [
+            (blur_shapes[-1], (1, 1), 4.0, "G up-blur forward; D skip blur backward"),
+            ((BATCH, SIZE, SIZE, 128), (2, 2), 1.0, "D conv blur forward; G up-blur backward"),
+            (student_blur_shapes(BATCH)[-1], (1, 1), 4.0, "11x student's largest up-blur")]:
+        x = torch.randn(shape, generator=rng, device=dev)
+        taps = correlation_taps(k4, gain)
+        c = shape[3]
+        t_bound, t_by = blur4_bound(shape, pad)
+        w_dw = (k4 * gain).flip(0, 1).reshape(1, 1, 4, 4).repeat(c, 1, 1, 1).to(dev)
+        x_nchw = x.permute(0, 3, 1, 2)  # channels-last view, as the port holds it
+        reset_counts()
+        blur4(x, k4, pad, gain)
+        blur_times.append({
+            "shape": list(shape), "pad": list(pad), "role": role,
+            "lanes": 4 if counts()["blur4_vector"] else 1,
+            "ms": time_ms(lambda: blur4(x, k4, pad, gain)),
+            "plain_ms": time_ms(lambda: blur4_plain(x, taps, pad), iters=5),
+            "bound_ms": t_bound, "bound_by": t_by,
+            "library_ms": time_ms(lambda: torch.nn.functional.conv2d(
+                x_nchw, w_dw, padding=pad[0], groups=c))})
+        blur_times[-1]["bound_share"] = t_bound / blur_times[-1]["ms"]
+        del x, x_nchw
+    detail("blur4_times", shapes=blur_times, card=card,
+           library="F.conv2d depthwise (groups=C) on the channels-last view")
 
     f_shape = fused_shapes[-1]
     x = torch.randn(f_shape, generator=rng, device=dev)
@@ -636,23 +661,6 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     detail("generator_rate", size=SIZE, batch=BATCH, dtype="float32", **rates,
            note="pytorch_defaults: cuDNN TF32 on, matmul TF32 off")
-
-    # blur4 at the discriminator's largest shape, pad (2,2)
-    d_shape = (BATCH, SIZE, SIZE, 128)
-    x = torch.randn(d_shape, generator=rng, device=dev)
-    taps1 = correlation_taps(k4, 1.0)
-    n_out = BATCH * (SIZE + 1) * (SIZE + 1) * 128
-    d_blur_flops = 2 * BATCH * 128 * in_bounds_taps(SIZE, SIZE + 1, 2) ** 2
-    d_blur_bound, d_blur_by = bound(4 * (x.numel() + n_out), d_blur_flops)
-    w_dw1 = k4.flip(0, 1).reshape(1, 1, 4, 4).repeat(128, 1, 1, 1).to(dev)
-    x_nchw = x.permute(0, 3, 1, 2)
-    d_blur = {"shape": list(d_shape), "pad": [2, 2],
-              "ms": time_ms(lambda: blur4(x, k4, (2, 2), 1.0)),
-              "plain_ms": time_ms(lambda: blur4_plain(x, taps1, (2, 2)), iters=5),
-              "bound_ms": d_blur_bound, "bound_by": d_blur_by,
-              "library_ms": time_ms(lambda: torch.nn.functional.conv2d(
-                  x_nchw, w_dw1, padding=2, groups=128))}
-    del x, x_nchw
 
     # masked_scale at its largest training shape: the student's last conv
     m_shape = (BATCH, SIZE, SIZE, STUDENT_SHAPE[-1])
@@ -705,10 +713,12 @@ def main():
          "launches": train_launches["blur4"] + train_launches["blur4_backward"],
          "launches_forward": train_launches["blur4"],
          "launches_backward": train_launches["blur4_backward"],
-         "launches_generate": launches["blur4"],
-         "max_abs_err": blur_err, "max_rel_err_backward": bw_blur_err, "ms": blur_ms,
-         "plain_ms": blur_plain_ms, "bound_ms": blur_bound, "bound_by": blur_by,
-         "library_ms": blur_lib_ms, "shape": list(b_shape), "discriminator": d_blur},
+         "vector_launches": train_launches["blur4_vector"],
+         "launches_generate": launches["blur4"], "vector_launches_generate": generate_vector,
+         "max_abs_err": blur_err, "max_rel_err_backward": bw_blur_err,
+         **{k: blur_times[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                          "library_ms", "shape")},
+         "shapes": blur_times},
         {"name": "fused_noise_bias_lrelu", "route": "cuda",
          "source": "content_aware_gan_compression_torch/csrc/fused_noise_bias_lrelu.cu",
          "replaces": "content_aware_gan_compression_tpu/ops/pallas/fused_act_pallas.py:50",

@@ -3,16 +3,18 @@
 
 ``blur4(x, kernel, pad, gain)`` computes ``upfirdn2d(x, kernel * gain, up=1,
 down=1, pad=pad)`` for a 4x4 kernel and pads >= 0 on an NHWC tensor. On a CUDA
-tensor it launches the kernel (or raises); on a CPU tensor it runs
-``blur4_plain``, the same 16 multiply-adds written in PyTorch. Its backward is
-the same blur with the kernel flipped on both axes and pads ``(3-p0, 3-p1)``,
-as the JAX package's ``_blur4_bwd``: it goes through ``Blur4Fn`` again, so R1's
-and the path-length regularizer's grad of grad stay on the kernel.
+tensor it launches the kernel (or raises) as ``launch_plan`` cuts it; on a
+CPU tensor it runs ``blur4_plain``, the same 16 multiply-adds written in
+PyTorch. Its backward is the same blur with the kernel flipped on both axes
+and pads ``(3-p0, 3-p1)``, as the JAX package's ``_blur4_bwd``: it goes
+through ``Blur4Fn`` again, so R1's and the path-length regularizer's grad of
+grad stay on the kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -20,6 +22,15 @@ import torch.nn.functional as F
 
 from . import build
 from .masked_scale import contiguous_grad
+
+SMS = 132  # streaming multiprocessors of an H100 SXM
+BLOCK_THREADS = 256  # threads a block aims at
+STRIP_ROWS = 32  # output rows a thread walks down, at most: 3/32 halo re-reads
+MAX_BLOCK_THREADS = 512  # the kernel's __launch_bounds__ (the card allows 1024)
+MAX_SMEM_BYTES = 232_448  # 227 KB: the dynamic shared memory a block can opt into
+MAX_GRID_X = 2 ** 31 - 1
+MAX_GRID_YZ = 65_535
+MAX_IMAGE_ELEMENTS = 2 ** 31 - 1  # the kernel's 32-bit offsets inside one image
 
 
 def correlation_taps(kernel, gain: float = 1.0) -> list[float]:
@@ -44,12 +55,109 @@ def blur4_plain(x: torch.Tensor, taps: list[float], pad: tuple[int, int]) -> tor
     return out
 
 
+def lane_width(c: int, *pointers: int) -> int:
+    """Channels per thread: 4 (``float4``) when ``c % 4 == 0`` and every
+    pointer is 16-byte aligned, else 1."""
+    return 4 if c % 4 == 0 and all(p % 16 == 0 for p in pointers) else 1
+
+
+@dataclasses.dataclass(frozen=True)
+class Blur4Plan:
+    """How one launch of ``csrc/blur4.cu`` cuts its output: blocks of
+    ``(cv_tile, tw)`` threads, each thread ``vec`` channels of one output
+    column, walking down a strip of ``th`` output rows. Grid x is the column
+    tiles times the ``n_ctiles`` channel tiles (channel tile fastest), y the
+    strips, z the images."""
+
+    shape: tuple[int, int, int, int]  # input [B, H, W, C]
+    pad: tuple[int, int]
+    vec: int
+    cv_tile: int
+    tw: int
+    th: int
+    n_ctiles: int
+    grid: tuple[int, int, int]
+    smem_bytes: int  # dynamic shared memory: 0, the neighbouring columns come from L1
+
+    @property
+    def out_shape(self) -> tuple[int, int, int, int]:
+        b, h, w, c = self.shape
+        grow = sum(self.pad) - 3
+        return b, h + grow, w + grow, c
+
+    @property
+    def block(self) -> tuple[int, int, int]:
+        return self.cv_tile, self.tw, 1
+
+    def tile(self, bx: int, by: int) -> tuple[range, range, range]:
+        """Output rows, columns and channels of the blocks at (bx, by, any
+        z), as the kernel computes them."""
+        _, ho, wo, c = self.out_shape
+        ctile, wtile = bx % self.n_ctiles, bx // self.n_ctiles
+        c0, ow0, oh0 = ctile * self.cv_tile * self.vec, wtile * self.tw, by * self.th
+        return (range(oh0, min(oh0 + self.th, ho)), range(ow0, min(ow0 + self.tw, wo)),
+                range(c0, min(c0 + self.cv_tile * self.vec, c)))
+
+    def window(self, bx: int, by: int) -> tuple[range, range]:
+        """Input rows and columns the block reads, halo included; those
+        outside the input read 0."""
+        rows, cols, _ = self.tile(bx, by)
+        p0 = self.pad[0]
+        return (range(rows.start - p0, rows.stop - p0 + 3),
+                range(cols.start - p0, cols.stop - p0 + 3))
+
+
+@functools.lru_cache(maxsize=256)
+def launch_plan(shape, pad, vec: int, sms: int = SMS, block_threads: int = BLOCK_THREADS,
+                strip_rows: int = STRIP_ROWS) -> Blur4Plan:
+    """The launch of ``csrc/blur4.cu`` for an NHWC input of ``shape``, pads
+    ``pad`` and ``vec`` channels per thread. A block takes one channel tile
+    (at most ``block_threads`` vectors) and as many columns as fill
+    ``block_threads``; strips are ``strip_rows`` high, halved while the grid
+    has fewer than 2 blocks per SM of ``sms``. ``bench_blur4 --sweep`` varies
+    ``block_threads`` and ``strip_rows``; the defaults measured best. Raises
+    where the card or the kernel's 32-bit offsets cannot take the shape."""
+    b, h, w, c = (int(n) for n in shape)
+    p0, p1 = (int(p) for p in pad)
+    ho, wo = h + p0 + p1 - 3, w + p0 + p1 - 3
+    if vec not in (1, 4) or c % vec:
+        raise ValueError(f"blur4 takes 1 or 4 lanes dividing C; got {vec} for C={c}")
+    if min(p0, p1) < 0 or min(b, c, ho, wo) < 1:
+        raise ValueError(f"blur4 has no output for input {tuple(shape)}, pad {tuple(pad)}")
+    if max(h * w * c, ho * wo * c) > MAX_IMAGE_ELEMENTS:
+        raise ValueError(f"blur4 takes images under 2^31 elements; {tuple(shape)} "
+                         f"pad {tuple(pad)} has {max(h * w * c, ho * wo * c)}")
+    cv = c // vec
+    n_ctiles = -(-cv // block_threads)
+    cv_tile = -(-cv // n_ctiles)
+    tw = min(wo, max(1, block_threads // cv_tile))
+    gx = -(-wo // tw) * n_ctiles
+    th = strip_rows
+    while th > 1 and gx * -(-ho // th) * b < 2 * sms:
+        th //= 2
+    plan = Blur4Plan((b, h, w, c), (p0, p1), vec, cv_tile, tw, th, n_ctiles,
+                     (gx, -(-ho // th), b), 0)
+    if cv_tile * tw > MAX_BLOCK_THREADS:
+        raise ValueError(f"blur4 block of {cv_tile * tw} threads > {MAX_BLOCK_THREADS}")
+    if plan.smem_bytes > MAX_SMEM_BYTES:
+        raise ValueError(f"blur4 needs {plan.smem_bytes} B of shared memory > {MAX_SMEM_BYTES}")
+    if plan.grid[0] > MAX_GRID_X or max(plan.grid[1:]) > MAX_GRID_YZ:
+        raise ValueError(f"blur4 grid {plan.grid} is over the card's limits "
+                         f"({MAX_GRID_X}, {MAX_GRID_YZ}, {MAX_GRID_YZ})")
+    return plan
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 @functools.cache
 def _entry():
     lib = build.library("blur4")
     fn = lib.blur4_forward
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_float)] \
-        + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        + [ctypes.c_int] * 15 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
 
@@ -68,11 +176,16 @@ def _run(x: torch.Tensor, taps: list[float], pad: tuple[int, int], backward: boo
     p0, p1 = pad
     b, h, w, c = x.shape
     out = torch.empty((b, h + p0 + p1 - 3, w + p0 + p1 - 3, c), dtype=x.dtype, device=x.device)
+    vec = lane_width(c, x.data_ptr(), out.data_ptr())
+    plan = launch_plan(tuple(x.shape), (p0, p1), vec, _sm_count(x.device.index))
     lib, fn = _entry()
     err = fn(x.data_ptr(), out.data_ptr(), (ctypes.c_float * 16)(*taps),
-             b, h, w, c, p0, p1, x.device.index,
+             b, h, w, c, p0, p1, plan.vec, plan.cv_tile, plan.tw, plan.th, plan.n_ctiles,
+             plan.grid[0], plan.grid[1], plan.smem_bytes, x.device.index,
              torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, "blur4", err)
+    if vec == 4:
+        blur4.vector_launches += 1
     if backward:
         blur4.backward_launches += 1
     else:
@@ -112,4 +225,5 @@ def blur4(x: torch.Tensor, kernel, pad: tuple[int, int], gain: float = 1.0) -> t
 
 blur4.launches = 0  # forward kernel launches since the last reset; the CPU path adds none
 blur4.backward_launches = 0  # launches made by autograd's backward, of any order
+blur4.vector_launches = 0  # launches, forward or backward, with float4 lanes
 blur4.grad_copies = 0  # gradients made contiguous before a backward launch

@@ -27,10 +27,18 @@ def dev():
     return torch.device("cuda")
 
 
+# the 11x student's up-blurs at batch 16: net_shape (154,)*10 + (77,77,39,39)
+STUDENT_BLURS = [(16, 2 ** r + 1, 2 ** r + 1, c)
+                 for r, c in zip(range(3, 9), (154, 154, 154, 154, 77, 39))]
+
+
 @pytest.mark.parametrize("shape,pad,gain", [
     ((2, 9, 9, 512), (1, 1), 4.0), ((2, 17, 17, 256), (1, 1), 4.0),
     ((3, 13, 9, 3), (2, 1), 1.0), ((2, 17, 11, 12), (2, 2), 4.0),
     ((2, 10, 15, 130), (1, 1), 1.0), ((1, 7, 7, 130), (2, 1), 4.0),
+    *[(s, (1, 1), 4.0) for s in STUDENT_BLURS],
+    ((2, 19, 13, 8), (0, 3), 1.0), ((2, 13, 19, 8), (3, 0), 1.0), ((2, 9, 12, 20), (3, 3), 1.0),
+    *[((3, 21, 11, c), (2, 1), 1.0) for c in range(1, 6)],
 ])
 def test_blur4_kernel_matches_plain(dev, shape, pad, gain):
     """Tolerance 1e-5 * max|x|: 16 fp32 multiply-adds summed in another
@@ -41,6 +49,43 @@ def test_blur4_kernel_matches_plain(dev, shape, pad, gain):
     want = blur4_plain(x, correlation_taps(k, gain), pad)
     assert got.shape == want.shape
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * x.abs().max().item())
+
+
+def _view(shape, offset, dev, seed):
+    """A contiguous tensor of ``shape`` that starts ``offset`` floats into
+    its storage: with offset 1 it is not 16-byte aligned."""
+    n = torch.Size(shape).numel()
+    gen = torch.Generator(dev).manual_seed(seed)
+    return torch.randn(n + offset, generator=gen, device=dev)[offset:].view(shape)
+
+
+@pytest.mark.parametrize("shape,pad", [((2, 17, 11, 128), (1, 1)), ((16, 33, 33, 154), (2, 2))])
+def test_blur4_kernel_on_a_misaligned_view(dev, shape, pad):
+    """A view 4 bytes into its storage takes the scalar lanes."""
+    x = _view(shape, 1, dev, 5)
+    k = torch.arange(16, dtype=torch.float32).reshape(4, 4) / 120
+    reset_counts()
+    got = blur4(x, k, pad, 1.0)
+    assert counts()["blur4"] == 1 and counts()["blur4_vector"] == 0
+    want = blur4_plain(x, correlation_taps(k, 1.0), pad)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * x.abs().max().item())
+
+
+@pytest.mark.parametrize("c,offset,vector", [
+    (128, 0, 1), (4, 0, 1), (130, 0, 0), (39, 0, 0), (3, 0, 0), (128, 1, 0), (128, 4, 1),
+])
+def test_blur4_vector_launches_move_only_for_float4_lanes(dev, c, offset, vector):
+    """float4 lanes exactly when C % 4 == 0 and the input is 16-byte
+    aligned (the output is a fresh allocation). The backward's gradient is
+    a fresh tensor too, so it takes float4 lanes whenever C % 4 == 0."""
+    x = _view((2, 9, 10, c), offset, dev, 6).requires_grad_(True)
+    k = make_kernel([1, 3, 3, 1])
+    reset_counts()
+    y = blur4(x, k, (1, 1), 4.0)
+    assert counts()["blur4_vector"] == vector
+    y.backward(torch.ones_like(y))
+    assert counts()["blur4_backward"] == 1
+    assert counts()["blur4_vector"] == vector + (c % 4 == 0)
 
 
 @pytest.mark.parametrize("shape,noise_batch", [
@@ -112,6 +157,8 @@ def _plain_twin(fn_kernel, fn_plain, *args):
     ((4, 9, 9, 154), (1, 1), 4.0),  # the student's up-blur
     ((4, 64, 64, 64), (2, 2), 1.0), ((4, 64, 64, 64), (1, 1), 1.0),  # D's down-blurs
     ((2, 11, 7, 3), (2, 1), 4.0),
+    (STUDENT_BLURS[-1], (1, 1), 4.0), (STUDENT_BLURS[-2], (1, 1), 4.0),
+    ((2, 19, 13, 8), (0, 3), 1.0), ((2, 13, 19, 5), (3, 0), 1.0),
 ])
 def test_blur4_backward_matches_plain_to_second_order(dev, shape, pad, gain):
     """Blur4Fn's backward and double backward launch blur4 again; tolerance
