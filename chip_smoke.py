@@ -25,25 +25,37 @@ Phases, each of which exits non-zero on failure:
      versions;
   6. drive the retraining path: the port's Trainer with the 11x student, the
      full-width teacher and D at 256px, batch 16, iterations 0-4 (R1 at 0,
-     path length at 0 and 4), and check every loss is finite and each phase
-     launched each kernel, forward and backward, as often as the shapes
-     require (train_phase_launches);
+     path length at 0 and 4), with the KD-L1 objective and then with the
+     reference's default objective (full_kd: content-aware KD, whose mask is
+     a full-width seeded BiSeNet's parse of the teacher's images, plus a
+     full-width seeded LPIPS-VGG16); check every loss is finite, the KD
+     terms are > 0, the mask keeps a share of the teacher's pixels strictly
+     inside (0, 1), and each phase launched each kernel, forward and
+     backward, as often as the shapes require (train_phase_launches): the
+     aux nets launch none;
   7. one iteration at 64px, batch 4, TF32 off, on the card and on the CPU,
-     each against the CPU in float64: losses and parameter gradients of
-     each phase;
+     each against the CPU in float64, for both objectives (full_kd with
+     width-scaled aux nets, every run given the float64 run's class map):
+     losses and parameter gradients of each phase; and the share of pixels
+     where the card's own parse agrees with float64's;
   8. run ``python -m content_aware_gan_compression_torch.train`` for 2
-     iterations at 256px on a seeded uint8 cache, then resume it;
+     iterations at 256px on a seeded uint8 cache with seeded aux-net files
+     in the reference's schemas (torchvision VGG16, the LPIPS heads, a
+     79999_iter.pth BiSeNet), then resume it;
   9. time the kernels against their bounds, their plain versions and one
      PyTorch library call each (blur4 at the generator's, the
      discriminator's and the student's largest shapes), the generator's
-     images/s, and the training iterations/s over one cadence window of 16
-     iterations, with its peak memory and where its device time goes.
+     images/s, the training iterations/s over one cadence window of 16
+     iterations with the full objective and over its first 8 with KD-L1,
+     with peak memory and where the device time goes, and LPIPS and the
+     parse alone at the G step's shapes.
 The last lines are a {"kernels": [...]} JSON line, the card's name and power
 limit, and {"ok": true, "device": {...}}. Needs a CUDA card; without one it
 exits non-zero and prints no result.
 """
 
 import contextlib
+import copy
 import json
 import os
 import shutil
@@ -55,6 +67,7 @@ import time
 import numpy as np
 import torch
 
+START = time.time()
 REPO = os.path.dirname(os.path.abspath(__file__))
 BATCH = 16
 SIZE = 256
@@ -76,10 +89,11 @@ def card_line():
 
 
 def detail(phase, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line per phase, with the seconds since the script started."""
+    print(json.dumps({"phase": phase, "t": round(time.time() - START, 1), **fields}), flush=True)
 
 
-def profile_forward(fn, iters=3, top=10, inference=True):
+def profile_forward(fn, iters=3, top=12, inference=True):
     """Where a window's device time goes: torch.profiler over ``iters``
     calls of ``fn(i)``; each kernel's share of the summed kernel time, the
     hand-written kernels' shares, and the device's busy share of the window
@@ -208,13 +222,141 @@ def write_train_checkpoints(work, size):
     return paths
 
 
-def train_config(size, batch, student, teacher, **kw):
-    """The retraining configuration: TrainConfig defaults with the KD terms
-    the CLI keeps when no BiSeNet and VGG weights are present (KD-L1)."""
+def train_config(size, batch, student, teacher, objective, **kw):
+    """The retraining configuration: TrainConfig defaults, the reference's
+    objective (``full_kd``: content_aware_KD, kd_l1_lambda = kd_lpips_lambda
+    = 3), or with the KD terms the CLI keeps when no BiSeNet and VGG weights
+    are present (``kd_l1``)."""
     from content_aware_gan_compression_torch.train import TrainConfig
 
+    if objective == "kd_l1":
+        kw = {"content_aware_KD": False, "kd_lpips_lambda": 0.0, **kw}
     return TrainConfig(generated_img_size=size, batch_size=batch, ckpt=student,
-                       teacher=teacher, content_aware_KD=False, kd_lpips_lambda=0.0, **kw)
+                       teacher=teacher, **kw)
+
+
+LPIPS_SEED = 5
+
+
+def seeded_lpips(width_scale=1.0):
+    from content_aware_gan_compression_torch.models import LPIPS, vgg16_widths
+
+    return LPIPS(vgg16_widths(width_scale), device="cpu",
+                 generator=torch.Generator().manual_seed(LPIPS_SEED))
+
+
+def mask_share(parser, img_nhwc):
+    """The share of ``img_nhwc``'s pixels the content-aware mask keeps, with
+    ``parser``'s parse."""
+    from content_aware_gan_compression_torch.models import make_parse_fn
+    from content_aware_gan_compression_torch.pruning import batch_img_parsing, get_masked_tensor
+
+    parse = batch_img_parsing(img_nhwc, make_parse_fn(parser, "NHWC"), "NHWC")
+    return get_masked_tensor(torch.ones_like(img_nhwc[..., :1]), parse, "NHWC").mean().item()
+
+
+def pick_parser(img_nhwc, width_scale=1.0, seeds=64):
+    """A seeded BiSeNet whose mask keeps between 2% and 98% of these
+    images' pixels: the first seed that does. A random parser mostly parses
+    every pixel as one class, which makes the mask all or nothing."""
+    from content_aware_gan_compression_torch.models import BiSeNet, bisenet_widths
+
+    for seed in range(seeds):
+        net = BiSeNet(bisenet_widths(width_scale), device="cpu",
+                      generator=torch.Generator().manual_seed(seed))
+        net = net.to(img_nhwc.device, img_nhwc.dtype).requires_grad_(False).eval()
+        share = mask_share(net, img_nhwc)
+        if 0.02 <= share <= 0.98:
+            return net, seed, share
+    fail(f"no BiSeNet seed in 0..{seeds - 1} parses the teacher's images into a mixed mask")
+
+
+class FixedParse(torch.nn.Module):
+    """Stands in for BiSeNet in a Trainer: head-0 logits one-hot in a given
+    class map, so that runs in other precisions mask with the same classes."""
+
+    def __init__(self, class_map):
+        super().__init__()
+        self.register_buffer("one_hot", torch.nn.functional.one_hot(class_map, 19))
+
+    def forward(self, x, data_format="NCHW", heads=1):
+        logits = self.one_hot.to(x.dtype)
+        return (logits if data_format == "NHWC" else logits.permute(0, 3, 1, 2),)
+
+
+def write_aux_files(work, lpips, parser):
+    """``lpips`` and ``parser`` in the files the train CLI reads:
+    torchvision's VGG16 (``features.N.*``), the reference's LPIPS heads
+    (``lin{k}.model.1.weight``) and 79999_iter.pth (``num_batches_tracked``
+    in every batch norm)."""
+    vgg = {f"features.{k}": v.cpu() for k, v in lpips.vgg.state_dict().items()}
+    lins = {f"lin{k}.model.1.weight": lin.weight.detach().cpu()
+            for k, lin in enumerate(lpips.lins)}
+    bisenet = {k: v.cpu() for k, v in parser.state_dict().items()}
+    for k in [k for k in bisenet if k.endswith("running_var")]:
+        bisenet[k[:-len("running_var")] + "num_batches_tracked"] = torch.tensor(79999)
+    paths = [os.path.join(work, name) for name in ("vgg16.pth", "lpips_lins.pth",
+                                                   "79999_iter.pth")]
+    for path, sd in zip(paths, (vgg, lins, bisenet)):
+        torch.save(sd, path)
+    return paths
+
+
+def drive_train_path(trainer, reals, want_phase, draws0=None):
+    """Iterations 0-4 with per-phase launch counts, each checked against
+    ``want_phase``. Returns (summed launches, per-iteration metrics,
+    per-iteration seconds, phase names)."""
+    from content_aware_gan_compression_torch.ops.cuda import reset_counts
+
+    mpl = torch.zeros((), device=trainer.device)
+    phases, metrics, iter_s = [], [], []
+    reset_counts()
+    for it in range(5):
+        t0 = time.time()
+        m, mpl = trainer.step(it, reals[it % 4], mpl, draws=draws0 if it == 0 else None,
+                              phase_hook=phase_counter(phases))
+        torch.cuda.synchronize()
+        iter_s.append(round(time.time() - t0, 3))
+        metrics.append({k: v.item() for k, v in m.items()})
+    launches = {}
+    for name, c in phases:
+        want = dict(want_phase[name])
+        got = {k: c[k] for k in want}
+        if got != want:
+            fail(f"train phase {name} launched {got}, want {want}")
+        for k, v in c.items():
+            launches[k] = launches.get(k, 0) + v
+    if not all(np.isfinite(v) for m in metrics for v in m.values()):
+        fail(f"a training loss is not finite: {metrics}")
+    for need in ("d_reg", "g", "g_reg"):
+        if not any(n == need for n, _ in phases):
+            fail(f"phase {need} did not run")
+    return launches, metrics, iter_s, [n for n, _ in phases]
+
+
+def train_window(trainer, reals, mpl, window=range(16, 32)):
+    """Iterations/s, host ms per iteration and peak memory over ``window``
+    (by default 16-31: R1 at 16, path length at 16, 20, 24, 28) after two
+    warm-up iterations, then the same window under the profiler. Returns
+    (dict, the running mean path length)."""
+    for it in (1, 2):  # warm-up, no regularizer
+        trainer.step(it, reals[it % 4], mpl)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for it in window:
+        _, mpl = trainer.step(it, reals[it % 4], mpl)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    out = {"iterations_per_s": len(window) / seconds,
+           "ms_per_iteration": seconds * 1e3 / len(window),
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    state = {"mpl": mpl}
+
+    def one(i):
+        _, state["mpl"] = trainer.step(window[i % len(window)], reals[i % 4], state["mpl"])
+    out["device_time"] = profile_forward(one, iters=len(window), inference=False)
+    return out, state["mpl"]
 
 
 def phase_counter(store):
@@ -468,106 +610,150 @@ def main():
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     student, teacher = write_train_checkpoints(work, SIZE)
-    cfg256 = train_config(SIZE, BATCH, student, teacher)
-    trainer = Trainer(cfg256, device=dev)
+    trainer = Trainer(train_config(SIZE, BATCH, student, teacher, "kd_l1"), device=dev)
     if trainer.g.config.net_shape != STUDENT_SHAPE:
         fail(f"student net_shape {trainer.g.config.net_shape}")
     reals = np.random.RandomState(0).randint(0, 256, (4, BATCH, SIZE, SIZE, 3), dtype=np.uint8)
     want_phase = train_phase_launches(int(np.log2(SIZE)))
     torch.backends.cudnn.allow_tf32 = False
-    mpl = torch.zeros((), device=dev)
-    phases, train_metrics, iter_s = [], [], []
-    reset_counts()
-    for it in range(5):
-        t0 = time.time()
-        m, mpl = trainer.step(it, reals[it % 4], mpl, phase_hook=phase_counter(phases))
-        torch.cuda.synchronize()
-        iter_s.append(round(time.time() - t0, 3))
-        train_metrics.append({k: v.item() for k, v in m.items()})
-    train_launches = {}
-    for name, c in phases:
-        want = {k: v for k, v in want_phase[name].items()}
-        got = {k: c[k] for k in want}
-        if got != want:
-            fail(f"train phase {name} launched {got}, want {want}")
-        for k, v in c.items():
-            train_launches[k] = train_launches.get(k, 0) + v
-    finite = all(np.isfinite(v) for m in train_metrics for v in m.values())
-    detail("train_path", size=SIZE, batch=BATCH, path_batch=PATH_BATCH,
-           student=list(STUDENT_SHAPE), phases=[n for n, _ in phases],
-           launches=train_launches, per_phase_want={k: want_phase[k] for k in want_phase},
-           iteration_seconds=iter_s, metrics=train_metrics, finite=finite, tf32=False)
-    if not finite:
-        fail("a training loss is not finite")
-    for need in ("d_reg", "g", "g_reg"):
-        if not any(n == need for n, _ in phases):
-            fail(f"phase {need} did not run")
+    train_launches, train_metrics, iter_s, phase_names = drive_train_path(
+        trainer, reals, want_phase)
+    detail("train_path", objective="kd_l1", size=SIZE, batch=BATCH, path_batch=PATH_BATCH,
+           student=list(STUDENT_SHAPE), phases=phase_names, launches=train_launches,
+           per_phase_want={k: want_phase[k] for k in want_phase}, iteration_seconds=iter_s,
+           metrics=train_metrics, tf32=False)
+
+    # full_kd: the parser is the first seed whose parse of teacher images
+    # (fresh latents) is mixed; LPIPS is drawn from its own seed
+    with torch.no_grad():
+        pick_gen = torch.Generator(dev).manual_seed(7)
+        t_img = trainer.teacher([torch.randn(BATCH, 512, generator=pick_gen, device=dev)],
+                                noise=trainer.teacher.make_noise(BATCH, pick_gen),
+                                output_format="NHWC")
+        parser, parser_seed, pick_share = pick_parser(t_img)
+    del t_img
+    full = Trainer(train_config(SIZE, BATCH, student, teacher, "full_kd"), device=dev,
+                   lpips_params=seeded_lpips(), parse_params=parser)
+    draws0 = full.draw(0)
+    full_launches, full_metrics, full_iter_s, full_phases = drive_train_path(
+        full, reals, want_phase, draws0)
+    with torch.no_grad():
+        g0 = draws0["g"]
+        t_img = full.teacher(g0["z"], inject_index=g0["inject_index"], noise=g0["teacher_noise"],
+                             output_format="NHWC")
+        coi = mask_share(full.parser, t_img)
+    del t_img
+    detail("train_path", objective="full_kd", size=SIZE, batch=BATCH, path_batch=PATH_BATCH,
+           lpips="LPIPS-VGG16, full width, seed 5", parser=f"BiSeNet, full width, seed "
+           f"{parser_seed} (mask keeps {pick_share:.4f} of the picking batch)",
+           phases=full_phases, launches=full_launches, iteration_seconds=full_iter_s,
+           metrics=full_metrics, coi_share_iteration0=coi, tf32=False)
+    if not all(m["kd_lpips_loss"] > 0 and m["kd_l1_loss"] > 0 for m in full_metrics):
+        fail(f"full_kd: a KD term is not > 0: {full_metrics}")
+    if not 0.0 < coi < 1.0:
+        fail(f"full_kd: the mask keeps {coi} of the teacher's pixels at iteration 0")
 
     # -- 7. one iteration at 64px on the card against the CPU ------------------
     # The path-length and R1 gradients are grads of grads, and fp32 rounds
     # them by up to 1% on either device. So the card and the CPU, both in
     # fp32, are each held against the same iteration in float64 on the CPU:
     # per phase, the card may be no further from it than twice the CPU's
-    # own fp32 distance, plus 1e-4.
+    # own fp32 distance, plus 1e-4. With the full objective every run masks
+    # with the float64 run's class map: an argmax may flip where two logits
+    # tie within rounding, which would measure the tie, not the port.
     s_small, t_small = write_train_checkpoints(work, 64)
-    # lr 0: Adam's first step is about lr * sign(g), so a weight whose
-    # gradient is near 0 would move apart on the two devices and every later
-    # phase would start from other weights; with lr 0 each phase compares
-    # the same computation on the same weights
-    cfg64 = train_config(64, 4, s_small, t_small, init_lr=0.0)
-    runs = {"cpu": Trainer(cfg64, device="cpu"), "card": Trainer(cfg64, device=dev),
-            "f64": Trainer(cfg64, device="cpu")}
-    for module in (runs["f64"].g, runs["f64"].d, runs["f64"].teacher):
-        module.double()
-    draws = runs["cpu"].draw(0)
     real64 = torch.from_numpy(np.random.RandomState(1).randint(
         0, 256, (4, 64, 64, 3), dtype=np.uint8)).float() / 127.5 - 1.0
     trained = {"d": "d", "d_reg": "d", "g": "g", "g_reg": "g"}
-    results = {}
-    for key, tr in runs.items():
-        dtype = torch.float64 if key == "f64" else torch.float32
-        store = results[key] = {}
+    small_checks = {}
+    for objective in ("kd_l1", "full_kd"):
+        # lr 0: Adam's first step is about lr * sign(g), so a weight whose
+        # gradient is near 0 would move apart on the two devices and every
+        # later phase would start from other weights; with lr 0 each phase
+        # compares the same computation on the same weights
+        cfg64 = train_config(64, 4, s_small, t_small, objective, init_lr=0.0)
+        aux = {"lpips_params": seeded_lpips(0.25).state_dict()} if objective == "full_kd" else {}
+        runs = {"cpu": Trainer(cfg64, device="cpu", **aux),
+                "card": Trainer(cfg64, device=dev, **aux),
+                "f64": Trainer(cfg64, device="cpu", **aux)}
+        for module in (runs["f64"].g, runs["f64"].d, runs["f64"].teacher, runs["f64"].lpips):
+            if module is not None:
+                module.double()
+        draws = runs["cpu"].draw(0)
+        f64_draws = {ph: {k: ([t.double() for t in v] if isinstance(v, list)
+                              else v.double() if v.is_floating_point() else v)
+                          for k, v in d.items()} for ph, d in draws.items()}
+        agree = None
+        if objective == "full_kd":
+            from content_aware_gan_compression_torch.models import make_parse_fn
+            from content_aware_gan_compression_torch.pruning import batch_img_parsing
 
-        def hook(name, store=store, tr=tr):
-            if name in trained:
-                store[name] = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
-                               .detach().cpu().double()
-                               for n, p in getattr(tr, trained[name]).named_parameters()}
-        cast = to_device(draws, tr.device)
-        if key == "f64":
-            cast = {ph: {k: ([t.double() for t in v] if isinstance(v, list)
-                             else v.double() if v.is_floating_point() else v)
-                         for k, v in d.items()} for ph, d in cast.items()}
-        metrics, _ = tr.step(0, real64.to(tr.device, dtype), torch.zeros((), device=tr.device,
-                                                                          dtype=dtype),
-                             draws=cast, phase_hook=hook)
-        store["losses"] = {k: v.item() for k, v in metrics.items()}
+            maps = {}
+            for key in ("cpu", "f64", "card"):  # the parser is picked on the CPU's images
+                tr, g_draw = runs[key], to_device(
+                    f64_draws["g"] if key == "f64" else draws["g"], runs[key].device)
+                with torch.no_grad():
+                    img = tr.teacher(g_draw["z"], inject_index=g_draw["inject_index"],
+                                     noise=g_draw["teacher_noise"], output_format="NHWC")
+                if key == "cpu":
+                    parser64, parser64_seed, _ = pick_parser(img, width_scale=0.25)
+                    continue
+                net = copy.deepcopy(parser64).to(tr.device, img.dtype)
+                maps[key] = batch_img_parsing(img, make_parse_fn(net, "NHWC"), "NHWC").cpu()
+            agree = (maps["card"] == maps["f64"]).float().mean().item()
+            for tr in runs.values():
+                tr.parser = FixedParse(maps["f64"]).to(tr.device)
+        results = {}
+        for key, tr in runs.items():
+            dtype = torch.float64 if key == "f64" else torch.float32
+            store = results[key] = {}
 
-    def distance(key):
-        losses = max(abs(v - results["f64"]["losses"][k]) / max(abs(results["f64"]["losses"][k]),
-                                                                1e-6)
-                     for k, v in results[key]["losses"].items())
-        grads = {ph: max(max_rel_err(results[key][ph][n], g)
-                         for n, g in results["f64"][ph].items()) for ph in trained}
-        return {"losses": losses, **grads}
+            def hook(name, store=store, tr=tr):
+                if name in trained:
+                    store[name] = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+                                   .detach().cpu().double()
+                                   for n, p in getattr(tr, trained[name]).named_parameters()}
+            metrics, _ = tr.step(0, real64.to(tr.device, dtype),
+                                 torch.zeros((), device=tr.device, dtype=dtype),
+                                 draws=to_device(f64_draws if key == "f64" else draws, tr.device),
+                                 phase_hook=hook)
+            store["losses"] = {k: v.item() for k, v in metrics.items()}
 
-    cpu_err, card_err = distance("cpu"), distance("card")
-    detail("train_cuda_vs_cpu", size=64, batch=4, tf32=False, lr=0.0,
-           card_vs_float64=card_err, cpu_vs_float64=cpu_err,
+        def distance(key, results=results):
+            losses = max(abs(v - results["f64"]["losses"][k])
+                         / max(abs(results["f64"]["losses"][k]), 1e-6)
+                         for k, v in results[key]["losses"].items())
+            grads = {ph: max(max_rel_err(results[key][ph][n], g)
+                             for n, g in results["f64"][ph].items()) for ph in trained}
+            return {"losses": losses, **grads}
+
+        cpu_err, card_err = distance("cpu"), distance("card")
+        small_checks[objective] = {"card_vs_float64": card_err, "cpu_vs_float64": cpu_err,
+                                   "losses_float64": results["f64"]["losses"]}
+        if agree is not None:
+            small_checks[objective].update(
+                parse_agreement_card_vs_float64=agree, parser_seed=parser64_seed,
+                aux="LPIPS and BiSeNet widths scaled 0.25, seeded")
+        bad = {k: (card_err[k], cpu_err[k]) for k in card_err
+               if not card_err[k] <= 2 * cpu_err[k] + 1e-4}
+        if bad:
+            fail(f"training ({objective}) on the card vs float64 on the CPU: {bad}")
+        if objective == "full_kd" and not results["f64"]["losses"]["kd_lpips_loss"] > 0:
+            fail("64px full_kd: the LPIPS term is 0")
+        del runs, results
+    detail("train_cuda_vs_cpu", size=64, batch=4, tf32=False, lr=0.0, **small_checks,
            measure="largest |a-b| / max|float64| over each phase's parameter tensors",
            tolerance="card <= 2 * cpu + 1e-4, per phase and for the losses")
-    bad = {k: (card_err[k], cpu_err[k]) for k in card_err
-           if not card_err[k] <= 2 * cpu_err[k] + 1e-4}
-    if bad:
-        fail(f"training on the card vs float64 on the CPU: {bad}")
-    del runs, results
 
-    # -- 8. the train CLI: two iterations, then a resume -----------------------
+    # -- 8. the train CLI: two iterations, then a resume, full objective ------
     cache = os.path.join(work, "ffhq256_seeded.npy")
     np.save(cache, np.random.RandomState(2).randint(0, 256, (32, SIZE, SIZE, 3), dtype=np.uint8))
+    vgg_file, lins_file, parsing_file = write_aux_files(work, full.lpips, full.parser)
     base = [sys.executable, "-m", "content_aware_gan_compression_torch.train", "--path", cache,
             "--size", str(SIZE), "--teacher_ckpt", teacher, "--batch_size", str(BATCH),
-            "--n_sample", "4", "--val_sample_freq", "1", "--model_save_freq", "1"]
+            "--n_sample", "4", "--val_sample_freq", "1", "--model_save_freq", "1",
+            "--lpips_vgg_ckpt", vgg_file, "--lpips_lins_ckpt", lins_file,
+            "--parsing_ckpt", parsing_file]
     cli = {}
     for label, extra in (("train", ["--ckpt", student, "--iter", "2"]),
                          ("resume", ["--load_train_state", "True", "--iter", "3"])):
@@ -584,6 +770,8 @@ def main():
             recs = [json.loads(line) for line in f]
         cli[label] = {"exp": exp, "seconds": round(time.time() - t0, 3),
                       "iters": [r["iter"] for r in recs],
+                      "kd_lpips_loss": [r["kd_lpips_loss"] for r in recs],
+                      "warnings": [ln for ln in proc.stdout.splitlines() if "WARNING" in ln],
                       "finite": all(np.isfinite(v) for r in recs for v in r.values()),
                       "samples": sorted(os.listdir(os.path.join(exp, "sample"))),
                       "ckpts": sorted(os.listdir(os.path.join(exp, "ckpt")))}
@@ -593,8 +781,14 @@ def main():
             or not cli["train"]["finite"] or not cli["resume"]["finite"]
             or "000001.npz" not in cli["train"]["ckpts"]
             or "000001.png" not in cli["train"]["samples"]
-            or "000002.npz" not in cli["resume"]["ckpts"]):
+            or "000002.npz" not in cli["resume"]["ckpts"]
+            or not all(v > 0 for c in cli.values() for v in c["kd_lpips_loss"])
+            or any(c["warnings"] for c in cli.values())):
         fail(f"train CLI: {cli}")
+    with open(next(os.path.join(cli["train"]["exp"], f) for f in os.listdir(cli["train"]["exp"])
+                   if f.endswith("_training_log.out"))) as f:
+        if "KD_LPIPS_Loss: 0.0 " in f.read():
+            fail("train CLI logged KD_LPIPS_Loss 0")
     with open(os.path.join(cli["train"]["exp"], "sample", "000001.png"), "rb") as f:
         head = f.read(24)
     if head[:8] != b"\x89PNG\r\n\x1a\n" or struct.unpack(">II", head[16:24]) != (
@@ -677,43 +871,57 @@ def main():
     del g_in, out
 
     # -- training rate over one cadence window: iterations 16-31 --------------
+    # full_kd over the whole window; KD-L1, for the cost of the full
+    # objective beside it, over its first half (1 R1 and 2 path-length steps
+    # in 8 iterations), which keeps the smoke near 10 minutes
     train_rate = {}
-    window = range(16, 32)  # R1 at 16, path length at 16, 20, 24, 28
-    for label, tf32 in (("tf32_off", False), ("pytorch_defaults", True)):
-        torch.backends.cudnn.allow_tf32 = tf32
-        for it in (1, 2):  # warm-up, no regularizer
-            trainer.step(it, reals[it % 4], mpl)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        for it in window:
-            _, mpl = trainer.step(it, reals[it % 4], mpl)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        train_rate[label] = {"iterations_per_s": len(window) / seconds,
-                             "ms_per_iteration": seconds * 1e3 / len(window),
-                             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
-        state = {"mpl": mpl}
-
-        def one(i, state=state):
-            _, state["mpl"] = trainer.step(window[i % len(window)], reals[i % 4], state["mpl"])
-        train_rate[label]["device_time"] = profile_forward(one, iters=len(window),
-                                                           inference=False)
-        mpl = state["mpl"]
+    for objective, tr, window in (("full_kd", full, range(16, 32)),
+                                  ("kd_l1", trainer, range(16, 24))):
+        mpl = torch.zeros((), device=dev)
+        for label, tf32 in (("tf32_off", False), ("pytorch_defaults", True)):
+            torch.backends.cudnn.allow_tf32 = tf32
+            train_rate[f"{objective}_{label}"], mpl = train_window(tr, reals, mpl, window)
     torch.backends.cudnn.allow_tf32 = False
     detail("train_rate", size=SIZE, batch=BATCH, path_batch=PATH_BATCH, dtype="float32",
-           window="iterations 16-31: 16 D and G steps, 1 R1, 4 path length", **train_rate,
-           note="pytorch_defaults: cuDNN TF32 on, matmul TF32 off")
-    del trainer
+           window="full_kd iterations 16-31: 16 D and G steps, 1 R1, 4 path length; "
+                  "kd_l1 iterations 16-23: 8 D and G steps, 1 R1, 2 path length", **train_rate,
+           note="pytorch_defaults: cuDNN TF32 on, matmul TF32 off; full_kd with full-width "
+                "seeded LPIPS-VGG16 and BiSeNet")
+
+    # the aux nets alone at the g phase's shapes: LPIPS on the student's and
+    # the teacher's images with the student's input gradient, and the parse
+    # (the 512px resize, BiSeNet head 0, the argmax)
+    from content_aware_gan_compression_torch.models import make_parse_fn
+    from content_aware_gan_compression_torch.pruning import batch_img_parsing
+
+    x_s = torch.randn(BATCH, SIZE, SIZE, 3, generator=rng, device=dev).tanh()
+    x_t = torch.randn(BATCH, SIZE, SIZE, 3, generator=rng, device=dev).tanh()
+    parse_fn = make_parse_fn(full.parser, "NHWC")
+
+    def lpips_step():
+        x = x_s.detach().requires_grad_(True)
+        full.lpips(x, x_t, data_format="NHWC").sum().backward()
+    aux_ms = {}
+    for label, tf32 in (("tf32_off", False), ("pytorch_defaults", True)):
+        torch.backends.cudnn.allow_tf32 = tf32
+        aux_ms[label] = {"lpips_forward_backward": time_ms(lpips_step, iters=10),
+                         "parse": time_ms(lambda: batch_img_parsing(x_t, parse_fn, "NHWC"),
+                                          iters=10)}
+    torch.backends.cudnn.allow_tf32 = False
+    detail("aux_times", batch=BATCH, size=SIZE, **aux_ms, card=card,
+           note="median ms of 10 calls, CUDA events; lpips: both images forward, the "
+                "student's input gradient back")
+    del trainer, full, x_s, x_t
 
     kernels = [
         {"name": "blur4", "route": "cuda",
          "source": "content_aware_gan_compression_torch/csrc/blur4.cu",
          "replaces": "content_aware_gan_compression_tpu/ops/pallas/upfirdn2d_pallas.py:66",
-         "launches": train_launches["blur4"] + train_launches["blur4_backward"],
-         "launches_forward": train_launches["blur4"],
-         "launches_backward": train_launches["blur4_backward"],
-         "vector_launches": train_launches["blur4_vector"],
+         "launches": full_launches["blur4"] + full_launches["blur4_backward"],
+         "launches_forward": full_launches["blur4"],
+         "launches_backward": full_launches["blur4_backward"],
+         "vector_launches": full_launches["blur4_vector"],
+         "launches_kd_l1": train_launches["blur4"] + train_launches["blur4_backward"],
          "launches_generate": launches["blur4"], "vector_launches_generate": generate_vector,
          "max_abs_err": blur_err, "max_rel_err_backward": bw_blur_err,
          **{k: blur_times[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
@@ -722,7 +930,8 @@ def main():
         {"name": "fused_noise_bias_lrelu", "route": "cuda",
          "source": "content_aware_gan_compression_torch/csrc/fused_noise_bias_lrelu.cu",
          "replaces": "content_aware_gan_compression_tpu/ops/pallas/fused_act_pallas.py:50",
-         "launches": train_launches["fused_noise_bias_lrelu"],
+         "launches": full_launches["fused_noise_bias_lrelu"],
+         "launches_kd_l1": train_launches["fused_noise_bias_lrelu"],
          "launches_generate": launches["fused_noise_bias_lrelu"], "max_abs_err": fused_err,
          "max_rel_err_backward": bw_fused_err,
          "ms": fused_ms, "plain_ms": fused_plain_ms, "bound_ms": fused_bound,
@@ -730,7 +939,8 @@ def main():
         {"name": "masked_scale", "route": "cuda",
          "source": "content_aware_gan_compression_torch/csrc/masked_scale.cu",
          "replaces": "content_aware_gan_compression_tpu/ops/pallas/fused_act_pallas.py:73",
-         "launches": train_launches["masked_scale"], "max_abs_err": ms_err, "ms": ms_ms,
+         "launches": full_launches["masked_scale"],
+         "launches_kd_l1": train_launches["masked_scale"], "max_abs_err": ms_err, "ms": ms_ms,
          "plain_ms": ms_plain_ms, "bound_ms": ms_bound, "bound_by": ms_by,
          "library_ms": ms_lib_ms, "library": "aten.leaky_relu_backward (no sqrt(2), mask > 0)",
          "shape": list(m_shape)},

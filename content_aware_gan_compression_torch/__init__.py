@@ -7,9 +7,10 @@ the same path. This package imports neither JAX nor the JAX package.
 
 Ported so far: the generator and ``generate``; the discriminator, the
 losses, the four training steps and the ``Trainer`` with its CLI
-(``python -m content_aware_gan_compression_torch.train``), for the KD-L1
-objective. Entry points run on ``cuda`` unless the caller passes
-``device="cpu"``.
+(``python -m content_aware_gan_compression_torch.train``), with the
+reference's default objective: content-aware KD (BiSeNet's parse of the
+teacher masks both images) plus LPIPS-VGG16. Entry points run on ``cuda``
+unless the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

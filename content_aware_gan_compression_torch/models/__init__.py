@@ -1,5 +1,17 @@
-"""StyleGAN2 generator and discriminator."""
+"""StyleGAN2 generator and discriminator, and the KD objective's aux nets:
+LPIPS-VGG16 and the BiSeNet face parser."""
 
+from .bisenet import BISENET_WIDTHS, N_CLASSES, BiSeNet, bisenet_widths, load_bisenet, make_parse_fn
+from .lpips import (
+    LPIPS,
+    LPIPS_CHANNELS,
+    VGG16_CONVS,
+    VGG16Features,
+    import_lpips_lins,
+    import_vgg16_features,
+    load_lpips,
+    vgg16_widths,
+)
 from .stylegan2 import (
     Discriminator,
     DiscriminatorConfig,
@@ -13,4 +25,7 @@ from .stylegan2 import (
 
 __all__ = ["Discriminator", "DiscriminatorConfig", "Generator", "GeneratorConfig",
            "default_channels", "default_net_shape", "discriminator_config_from_params",
-           "net_shape_from_params"]
+           "net_shape_from_params", "BISENET_WIDTHS", "N_CLASSES", "BiSeNet", "bisenet_widths",
+           "load_bisenet", "make_parse_fn", "LPIPS", "LPIPS_CHANNELS", "VGG16_CONVS",
+           "VGG16Features", "import_lpips_lins", "import_vgg16_features", "load_lpips",
+           "vgg16_widths"]

@@ -10,10 +10,13 @@ JAX CLI's TPU flags (``--dtype``, ``--opt_state_dtype``, ``--n_devices``,
 ``--remat``, ``--packed_trunk``, ``--steps_per_dispatch``, ``--input_put``,
 ``--data_echo``) have no counterpart.
 
-The content-aware KD mask and the LPIPS term need BiSeNet and VGG16 weights.
-When those files are absent, this prints the JAX CLI's warning and drops the
-term, as the JAX CLI does; when one is present it raises, because those nets
-are not ported yet, so a run never differs from the JAX one in silence.
+The content-aware KD mask and the LPIPS term need the aux nets' weights:
+BiSeNet from ``--parsing_ckpt`` (the reference's ``79999_iter.pth`` schema),
+VGG16 from ``--lpips_vgg_ckpt`` (torchvision's ``features.N.*``) and the
+LPIPS heads from ``--lpips_lins_ckpt`` (the reference's
+``lpips/weights/v0.1/vgg.pth``, ``lin{k}.model.1.weight``). When the BiSeNet
+or VGG16 file is absent, this prints the JAX CLI's warning and drops that
+term, as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -71,6 +74,7 @@ def parse_args(argv=None):
     p.add_argument("--parsing_ckpt", type=str, default="./Model/face_parsing/79999_iter.pth")
     p.add_argument("--lpips_vgg_ckpt", type=str,
                    default="./Model/metrics/vgg16_torchvision.pth")
+    p.add_argument("--lpips_lins_ckpt", type=str, default="./lpips/weights/v0.1/vgg.pth")
     p.add_argument("--inception_ckpt", type=str,
                    default="./Model/metrics/pt_inception-2015-12-05-6726825d.pth")
     p.add_argument("--real_stats", type=str, default=None)
@@ -80,9 +84,8 @@ def parse_args(argv=None):
 
 
 def config_from_args(args):
-    """The TrainConfig of the flags, after the aux-net weight checks."""
+    """The TrainConfig of the flags."""
     from .config import TrainConfig
-    from .losses import _NEXT_SLICE
 
     cfg = TrainConfig(
         data_folder=args.path, generated_img_size=args.size, ckpt=args.ckpt,
@@ -96,32 +99,44 @@ def config_from_args(args):
         fid_n_sample=args.fid_n_sample, fid_batch=args.fid_batch, teacher=args.teacher_ckpt,
         kd_l1_lambda=args.kd_l1_lambda, kd_lpips_lambda=args.kd_lpips_lambda,
         kd_mode=args.kd_mode, content_aware_KD=args.content_aware_KD, seed=args.seed)
-    if cfg.teacher and cfg.kd_lpips_lambda > 0:
-        if os.path.exists(args.lpips_vgg_ckpt):
-            raise NotImplementedError(f"VGG weights found at {args.lpips_vgg_ckpt}, but "
-                                      + _NEXT_SLICE)
-        print(f"WARNING: no VGG weights at {args.lpips_vgg_ckpt}; LPIPS KD disabled")
-        cfg = dataclasses.replace(cfg, kd_lpips_lambda=0.0)
-    if cfg.teacher and cfg.content_aware_KD:
-        if os.path.exists(args.parsing_ckpt):
-            raise NotImplementedError(f"BiSeNet weights found at {args.parsing_ckpt}, but "
-                                      + _NEXT_SLICE)
-        print(f"WARNING: no BiSeNet weights at {args.parsing_ckpt}; "
-              "content-aware KD masking disabled")
     if args.real_stats and os.path.exists(args.inception_ckpt):
         raise NotImplementedError("in-loop FID is not ported yet; drop --real_stats")
     return cfg
 
 
+def aux_nets_from_args(args, cfg):
+    """(cfg, LPIPS or None, BiSeNet or None), loaded on the CPU from the
+    flags' files where the objective needs them (the JAX CLI's
+    train.py:146-166): without VGG16 weights the LPIPS term is dropped
+    (``kd_lpips_lambda`` 0), without BiSeNet weights the KD mask."""
+    from ..models import load_bisenet, load_lpips
+
+    lpips = parser = None
+    if cfg.teacher and cfg.kd_lpips_lambda > 0:
+        if os.path.exists(args.lpips_vgg_ckpt):
+            lpips = load_lpips(args.lpips_vgg_ckpt, args.lpips_lins_ckpt, device="cpu")
+        else:
+            print(f"WARNING: no VGG weights at {args.lpips_vgg_ckpt}; LPIPS KD disabled")
+            cfg = dataclasses.replace(cfg, kd_lpips_lambda=0.0)
+    if cfg.teacher and cfg.content_aware_KD:
+        if os.path.exists(args.parsing_ckpt):
+            parser = load_bisenet(args.parsing_ckpt, device="cpu")
+        else:
+            print(f"WARNING: no BiSeNet weights at {args.parsing_ckpt}; "
+                  "content-aware KD masking disabled")
+    return cfg, lpips, parser
+
+
 def main(argv=None):
     args = parse_args(argv)
-    cfg = config_from_args(args)
+    cfg, lpips, parser = aux_nets_from_args(args, config_from_args(args))
 
     from ..utils import ExperimentLogger
     from .loop import Trainer
 
     logger = ExperimentLogger(args.exp_root)
-    trainer = Trainer(cfg, device=args.device, exp_root=args.exp_root)
+    trainer = Trainer(cfg, device=args.device, exp_root=args.exp_root, lpips_params=lpips,
+                      parse_params=parser)
     status = (
         "\n--------------- Training Start ---------------\n\n"
         f"Params:\n\n  Model and Data:\n"

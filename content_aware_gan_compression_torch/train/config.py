@@ -12,6 +12,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 KNOWLEDGE_DISTILLATION_MODE = ("Output_Only", "Intermediate")
+LPIPS_IMAGE_SIZE = 256  # images above this size are pooled to 256 for LPIPS
 
 
 @dataclass(frozen=True)

@@ -19,15 +19,23 @@ import torch
 from ..data import infinite_loader, open_dataset
 from ..models.stylegan2 import Discriminator, DiscriminatorConfig, Generator, GeneratorConfig
 from ..utils.checkpoint import (
-    build_discriminator_from_state_dict, build_generator_from_state_dict, load_optimizer_state,
+    build_bisenet_from_state_dict, build_discriminator_from_state_dict,
+    build_generator_from_state_dict, build_lpips_from_state_dict, load_optimizer_state,
     load_training_checkpoint, optimizer_state_to_jax, save_checkpoint)
 from ..utils.logging import ExperimentLogger, save_image_grid
 from ..utils.runtime import resolve_device
 from .config import TrainConfig
-from .losses import _NEXT_SLICE
 from .steps import (
     d_reg_step, d_step, draw_d, draw_g, draw_g_reg, ema_accumulate, g_reg_step, g_step,
     make_optimizers, prepare_real)
+
+
+def _frozen(net_or_state, build, device):
+    """An aux net (given as a module or as its state dict) on ``device``, in
+    eval mode and without gradients."""
+    net = (net_or_state.to(device) if isinstance(net_or_state, torch.nn.Module)
+           else build(net_or_state, device=device))
+    return net.requires_grad_(False).eval()
 
 
 class Trainer:
@@ -40,12 +48,16 @@ class Trainer:
     ``cfg.seed``; D is drawn when the checkpoint has none. Random draws of
     the loop come from a ``torch.Generator`` on ``device`` seeded with
     ``cfg.seed``. ``device`` defaults to ``cuda``.
+
+    ``lpips_params`` (an ``LPIPS`` or its state dict, e.g. a JAX
+    ``lpips_init`` tree) is kept when there is a teacher and
+    ``kd_lpips_lambda > 0``; ``parse_params`` (a ``BiSeNet`` or its state
+    dict) when there is a teacher and ``content_aware_KD``, as in the JAX
+    Trainer. Both are moved to ``device`` once and frozen.
     """
 
     def __init__(self, cfg: TrainConfig, *, device="cuda", exp_root=".", lpips_params=None,
                  parse_params=None, inception_params=None, real_stats=None):
-        if lpips_params is not None or parse_params is not None:
-            raise NotImplementedError(_NEXT_SLICE)
         if inception_params is not None or real_stats is not None:
             raise NotImplementedError("in-loop FID is not ported yet")
         self.cfg = cfg
@@ -83,6 +95,13 @@ class Trainer:
             self.teacher = build_generator_from_state_dict(t_trees["g_ema"], size, style,
                                                            n_mlp, device=device)
             self.teacher.requires_grad_(False)
+
+        # aux nets of the KD objective (the JAX loop.py:189-192)
+        self.lpips = self.parser = None
+        if cfg.teacher and cfg.kd_lpips_lambda > 0 and lpips_params is not None:
+            self.lpips = _frozen(lpips_params, build_lpips_from_state_dict, device)
+        if cfg.teacher and cfg.content_aware_KD and parse_params is not None:
+            self.parser = _frozen(parse_params, build_bisenet_from_state_dict, device)
 
         self.g_opt, self.d_opt = make_optimizers(self.g, self.d, cfg)
         self.start_iter = 0
@@ -124,7 +143,8 @@ class Trainer:
         if iter_idx % cfg.d_reg_freq == 0:
             metrics.update(d_reg_step(self.d, self.d_opt, real, cfg))
             hook("d_reg")
-        metrics.update(g_step(self.g, self.g_opt, self.d, draws["g"], cfg, self.teacher))
+        metrics.update(g_step(self.g, self.g_opt, self.d, draws["g"], cfg, self.teacher,
+                              self.lpips, self.parser))
         hook("g")
         if iter_idx % cfg.g_reg_freq == 0:
             mean_path_length, m = g_reg_step(self.g, self.g_opt, draws["g_reg"],

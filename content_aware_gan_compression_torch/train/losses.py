@@ -1,14 +1,14 @@
 """GAN and distillation losses (the JAX package's train/losses.py; reference
-train.py:145-206). Images may be NCHW or NHWC: every loss here is a mean or a
-sum over all elements, so the layout does not change it."""
+train.py:145-206). The GAN losses are means or sums over all elements, so
+they take either layout; ``kd_loss`` takes its images' layout as
+``data_format``."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-_NEXT_SLICE = ("content-aware KD masks and LPIPS come with the next slice of the "
-               "port (BiSeNet, LPIPS and the COI mask helpers)")
+from ..pruning.content_aware import batch_img_parsing, bilinear_resize, get_masked_tensor
 
 
 def d_logistic_loss(real_pred, fake_pred):
@@ -32,24 +32,41 @@ def r1_penalty(discriminator, real_img):
 
 
 def kd_loss(fake_img, fake_img_list, teacher_img_list, *, kd_l1_lambda, kd_lpips_lambda,
-            kd_mode, size, lpips_params=None, parse_fn=None, lpips_image_size=256):
-    """Knowledge distillation from the teacher (reference KD_loss,
-    train.py:145-184): L1 between student and teacher images, the final
-    output only or summed over the per-scale rgb list. Teacher images arrive
-    without gradients. Returns ``(kd_l1, kd_lpips)``; ``kd_lpips`` is 0 here.
+            kd_mode, size, lpips=None, parse_fn=None, lpips_image_size=256,
+            data_format="NCHW"):
+    """Content-masked knowledge distillation (reference KD_loss,
+    train.py:145-184): L1 between the (COI-masked) student and teacher
+    images, the final output only or summed over the per-scale rgb list,
+    plus LPIPS between the (masked, and above ``lpips_image_size``
+    downsampled to 256) final images. Returns ``(kd_l1, kd_lpips)``.
 
-    The content-aware mask (``parse_fn``) and the LPIPS term
-    (``lpips_params``) are not ported yet and raise."""
-    del size, lpips_image_size, kd_lpips_lambda  # used by the LPIPS term only
-    if parse_fn is not None or lpips_params is not None:
-        raise NotImplementedError(_NEXT_SLICE)
+    The teacher's parse (``parse_fn``, BiSeNet head 0) masks both images;
+    teacher images arrive without gradients. ``lpips`` is an ``LPIPS``
+    module (or None: no LPIPS term). ``data_format`` is the layout of every
+    image and of ``parse_fn``'s input and output."""
+    fake_img_teacher = teacher_img_list[-1]
+    if parse_fn is not None:
+        teacher_parsing = batch_img_parsing(fake_img_teacher, parse_fn, data_format)
+        fake_img_teacher = get_masked_tensor(fake_img_teacher, teacher_parsing, data_format)
+        fake_img = get_masked_tensor(fake_img, teacher_parsing, data_format)
+
     if kd_mode == "Output_Only":
-        kd_l1 = kd_l1_lambda * torch.mean(torch.abs(teacher_img_list[-1] - fake_img))
+        kd_l1 = kd_l1_lambda * torch.mean(torch.abs(fake_img_teacher - fake_img))
     elif kd_mode == "Intermediate":
         # as the reference (train.py:165-169): the rgb-list L1 takes the
-        # unmasked intermediate images
+        # unmasked intermediate images, and LPIPS then sees the unmasked
+        # final teacher image
         kd_l1 = kd_l1_lambda * sum(torch.mean(torch.abs(t - s))
                                    for t, s in zip(teacher_img_list, fake_img_list))
+        fake_img_teacher = teacher_img_list[-1]
     else:
         raise ValueError(f"unknown kd_mode {kd_mode!r}")
-    return kd_l1, torch.zeros((), dtype=fake_img.dtype, device=fake_img.device)
+
+    if lpips is None:
+        return kd_l1, torch.zeros((), dtype=fake_img.dtype, device=fake_img.device)
+    a, b = fake_img, fake_img_teacher
+    if size > lpips_image_size:
+        # the reference pools >256px images to 256 (train.py:176-182)
+        a, b = (bilinear_resize(t, 256, 256, data_format) for t in (a, b))
+    kd_lpips = kd_lpips_lambda * torch.mean(lpips(a, b, data_format=data_format).float())
+    return kd_l1, kd_lpips

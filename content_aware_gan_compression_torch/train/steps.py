@@ -17,6 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..models.bisenet import make_parse_fn
+from .config import LPIPS_IMAGE_SIZE
 from .losses import d_logistic_loss, g_nonsaturating_loss, kd_loss, r1_penalty
 
 EMA_ACCUM = 0.5 ** (32 / (10 * 1000))  # reference train.py:367
@@ -145,6 +147,12 @@ def draw_g_reg(gen, g, cfg) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def _f32_up(t):
+    """``t`` in float32 at least: the losses run in float32, as in the JAX
+    steps, and a float64 run stays in float64."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def _fake(g, draws, **kw):
     return g(draws["z"], inject_index=draws["inject_index"], noise=draws["noise"],
              output_format="NHWC", **kw)
@@ -174,9 +182,12 @@ def d_reg_step(d, d_opt, real, cfg) -> dict:
     return {"r1": r1.detach()}
 
 
-def g_step(g, g_opt, d, draws, cfg, teacher=None) -> dict:
+def g_step(g, g_opt, d, draws, cfg, teacher=None, lpips=None, parser=None) -> dict:
     """G GAN + KD step (reference G_Loss_BackProp), against the D it is
-    given, which the caller has already updated this iteration."""
+    given, which the caller has already updated this iteration. ``lpips``
+    (an ``LPIPS``) adds the LPIPS term and ``parser`` (a ``BiSeNet``) the
+    content-aware mask: head 0 on the teacher's image, in float32. Both are
+    frozen; only ``g`` takes gradients."""
     need_lists = cfg.kd_mode == "Intermediate"
     teacher_list = None
     if teacher is not None:
@@ -193,10 +204,12 @@ def g_step(g, g_opt, d, draws, cfg, teacher=None) -> dict:
     total = g_loss
     if teacher_list is not None:
         kd_l1, kd_lpips = kd_loss(
-            fake_img.float(), [f.float() for f in fake_list],
-            [t.float() for t in teacher_list], kd_l1_lambda=cfg.kd_l1_lambda,
+            _f32_up(fake_img), [_f32_up(f) for f in fake_list],
+            [_f32_up(t) for t in teacher_list], kd_l1_lambda=cfg.kd_l1_lambda,
             kd_lpips_lambda=cfg.kd_lpips_lambda, kd_mode=cfg.kd_mode,
-            size=cfg.generated_img_size)
+            size=cfg.generated_img_size, lpips=lpips,
+            parse_fn=None if parser is None else make_parse_fn(parser, "NHWC"),
+            lpips_image_size=LPIPS_IMAGE_SIZE, data_format="NHWC")
         metrics["kd_l1_loss"] = kd_l1.detach()
         metrics["kd_lpips_loss"] = kd_lpips.detach()
         total = g_loss + kd_l1 + kd_lpips

@@ -1,8 +1,10 @@
 """Checkpoint I/O, experiment logs, image grids and device selection."""
 
 from .checkpoint import (
+    build_bisenet_from_state_dict,
     build_discriminator_from_state_dict,
     build_generator_from_state_dict,
+    build_lpips_from_state_dict,
     load_checkpoint,
     load_generator,
     load_optimizer_state,
@@ -18,8 +20,10 @@ from .logging import ExperimentLogger, save_image_grid
 from .runtime import resolve_device
 
 __all__ = [
+    "build_bisenet_from_state_dict",
     "build_discriminator_from_state_dict",
     "build_generator_from_state_dict",
+    "build_lpips_from_state_dict",
     "load_checkpoint",
     "load_generator",
     "load_optimizer_state",

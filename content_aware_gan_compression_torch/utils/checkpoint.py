@@ -177,6 +177,32 @@ def build_discriminator_from_state_dict(state_dict, size: int, channel_multiplie
     return d
 
 
+def build_lpips_from_state_dict(state_dict, *, device="cuda"):
+    """An ``LPIPS`` holding ``state_dict`` (the JAX ``lpips_init`` tree, flat
+    or nested), its widths read off the conv weights."""
+    from ..models.lpips import LPIPS, VGG16_CONVS
+
+    sd = state_dict_from_jax(state_dict)
+    widths = tuple(int(sd[f"vgg.{idx}.weight"].shape[0]) for idx, _, _ in VGG16_CONVS)
+    net = LPIPS(widths, device=device)
+    net.load_state_dict(sd, strict=True)
+    return net
+
+
+def build_bisenet_from_state_dict(state_dict, *, device="cuda"):
+    """A ``BiSeNet`` holding ``state_dict`` (the JAX ``bisenet_init`` tree or
+    a reference one without ``num_batches_tracked``), its widths and class
+    count read off the tensors."""
+    from ..models.bisenet import BiSeNet
+
+    sd = state_dict_from_jax(state_dict)
+    widths = tuple(int(sd[f"cp.resnet.{key}.weight"].shape[0]) for key in (
+        "conv1", "layer2.0.conv1", "layer3.0.conv1", "layer4.0.conv1"))
+    net = BiSeNet(widths, int(sd["conv_out.conv_out.weight"].shape[0]), device=device)
+    net.load_state_dict(sd, strict=True)
+    return net
+
+
 # ---------------------------------------------------------------------------
 # optimizer state
 # ---------------------------------------------------------------------------

@@ -1,8 +1,10 @@
 """``python -m content_aware_gan_compression_torch.train`` on the CPU: two
 iterations on a tiny uint8 cache from JAX-written student and teacher
 checkpoints write a checkpoint, metrics.jsonl and sample grids, and
-``--load_train_state`` resumes at the next iteration. Also the CLI's handling
-of the aux-net weight files it cannot use yet."""
+``--load_train_state`` resumes at the next iteration; with seeded aux-net
+files in the reference's schemas (torchvision's VGG16, the LPIPS heads, a
+79999_iter.pth BiSeNet) the run trains the full objective. Also the CLI's
+handling of absent and unreadable aux-net files."""
 
 import json
 import os
@@ -14,8 +16,11 @@ import numpy as np
 import pytest
 import torch
 
-from content_aware_gan_compression_torch.train.__main__ import config_from_args, parse_args
-from torch_train_util import N_MLP, SIZE, STYLE, write_checkpoints
+from content_aware_gan_compression_torch.models import LPIPS, vgg16_widths
+from content_aware_gan_compression_torch.train.__main__ import (
+    aux_nets_from_args, config_from_args, parse_args)
+from content_aware_gan_compression_torch.utils import build_bisenet_from_state_dict
+from torch_train_util import N_MLP, SIZE, STYLE, aux_trees, write_checkpoints
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -71,21 +76,68 @@ def test_cli_trains_saves_and_resumes(tmp_path):
     assert (exp2 / "ckpt" / "000003.npz").exists()
 
 
+def write_aux_files(dirpath):
+    """Seeded aux nets (widths scaled 0.25) in the files the CLI reads:
+    torchvision's VGG16 (``features.N.*``, with a classifier beside it), the
+    reference's LPIPS heads (``lin{k}.model.1.weight``) and a BiSeNet as
+    79999_iter.pth holds it (``num_batches_tracked`` in every batch norm)."""
+    lpips = LPIPS(vgg16_widths(0.25), device="cpu", generator=torch.Generator().manual_seed(6))
+    vgg = {f"features.{k}": v for k, v in lpips.vgg.state_dict().items()}
+    vgg["classifier.0.weight"] = torch.zeros(2, 2)
+    lins = {f"lin{k}.model.1.weight": lin.weight.detach()
+            for k, lin in enumerate(lpips.lins)}
+    bisenet = build_bisenet_from_state_dict(aux_trees()[1], device="cpu").state_dict()
+    for k in [k for k in bisenet if k.endswith("running_var")]:
+        bisenet[k[:-len("running_var")] + "num_batches_tracked"] = torch.tensor(79999)
+    paths = [str(dirpath / name) for name in ("vgg16.pth", "lins.pth", "79999_iter.pth")]
+    for path, sd in zip(paths, (vgg, lins, bisenet)):
+        torch.save(sd, path)
+    return paths
+
+
+def test_cli_trains_the_full_objective_from_aux_files(tmp_path):
+    student, teacher = write_checkpoints(tmp_path)
+    vgg, lins, parsing = write_aux_files(tmp_path)
+    proc = _cli(*_common(tmp_path, student, teacher), "--ckpt", student, "--iter", "2",
+                "--lpips_vgg_ckpt", vgg, "--lpips_lins_ckpt", lins, "--parsing_ckpt", parsing,
+                "--exp_root", str(tmp_path / "run"), cwd=tmp_path)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "WARNING" not in proc.stdout
+    (exp,) = _runs(tmp_path / "run")
+    recs = [json.loads(line) for line in (exp / "metrics.jsonl").read_text().splitlines()]
+    assert [r["iter"] for r in recs] == [0, 1]
+    assert all(r["kd_lpips_loss"] > 0 and r["kd_l1_loss"] > 0 for r in recs)
+    assert all(np.isfinite(v) for r in recs for v in r.values())
+    log = next(exp.glob("*_training_log.out")).read_text()
+    assert "KD_LPIPS_Loss: 0.0 " not in log and "Content Aware: True" in log
+
+
 def test_cli_raises_where_aux_weights_exist(tmp_path):
-    """A present BiSeNet or VGG file would make JAX's run differ from this
-    one, so the CLI refuses it until those nets are ported."""
+    """Present aux files are loaded, so a file that is not a checkpoint
+    raises instead of being dropped; absent ones drop their term with the
+    JAX CLI's warning; without a teacher nothing is loaded."""
     (tmp_path / "bisenet.pth").write_bytes(b"")
     base = ["--teacher_ckpt", "t.npz", "--lpips_vgg_ckpt", str(tmp_path / "none.pth"),
             "--parsing_ckpt", str(tmp_path / "bisenet.pth")]
-    with pytest.raises(NotImplementedError, match="BiSeNet"):
-        config_from_args(parse_args(base))
-    cfg = config_from_args(parse_args([*base, "--content_aware_KD", "False"]))
+    args = parse_args(base)
+    with pytest.raises(EOFError):
+        aux_nets_from_args(args, config_from_args(args))
+    args = parse_args([*base, "--content_aware_KD", "False"])
+    cfg, lpips, parser = aux_nets_from_args(args, config_from_args(args))
     assert cfg.kd_lpips_lambda == 0.0 and not cfg.content_aware_KD
-    with pytest.raises(NotImplementedError, match="VGG"):
-        config_from_args(parse_args(["--teacher_ckpt", "t.npz", "--lpips_vgg_ckpt",
-                                     str(tmp_path / "bisenet.pth")]))
-    cfg = config_from_args(parse_args([]))  # no teacher: no KD terms to check
-    assert cfg.kd_lpips_lambda == 3.0 and cfg.teacher is None
+    assert lpips is None and parser is None
+    args = parse_args(["--teacher_ckpt", "t.npz", "--lpips_vgg_ckpt",
+                       str(tmp_path / "bisenet.pth")])
+    with pytest.raises(EOFError):
+        aux_nets_from_args(args, config_from_args(args))
+    vgg, lins, parsing = write_aux_files(tmp_path)
+    args = parse_args(["--teacher_ckpt", "t.npz", "--lpips_vgg_ckpt", vgg,
+                       "--lpips_lins_ckpt", lins, "--parsing_ckpt", parsing])
+    cfg, lpips, parser = aux_nets_from_args(args, config_from_args(args))
+    assert cfg.kd_lpips_lambda == 3.0 and lpips is not None and parser is not None
+    args = parse_args([])  # no teacher: no KD terms to load
+    cfg, lpips, parser = aux_nets_from_args(args, config_from_args(args))
+    assert cfg.kd_lpips_lambda == 3.0 and cfg.teacher is None and lpips is parser is None
 
 
 def test_cli_refuses_cuda_without_a_card(tmp_path):

@@ -11,6 +11,8 @@ from jax import random
 from content_aware_gan_compression_tpu.models import (
     DiscriminatorConfig as JaxDiscriminatorConfig, GeneratorConfig as JaxGeneratorConfig,
     discriminator_init, generator_init, generator_make_noise)
+from content_aware_gan_compression_tpu.models.bisenet import bisenet_init
+from content_aware_gan_compression_tpu.models.lpips import lpips_init
 from content_aware_gan_compression_tpu.train.steps import _mixing_latents
 from content_aware_gan_compression_tpu.utils import save_checkpoint as jax_save_checkpoint
 
@@ -32,12 +34,19 @@ def train_kw(**kw):
     return base
 
 
-def jax_params():
+def _jit_init(init, seed, *args, **kw):
+    """``init(PRNGKey(seed), *args, **kw)`` as numpy, jitted: the same draws
+    as eagerly, without compiling every op on its own."""
+    tree = jax.jit(lambda key: init(key, *args, **kw))(random.PRNGKey(seed))
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def jax_params(g_cfg=G_CFG, t_cfg=T_CFG, d_cfg=D_CFG):
     """(student, teacher, D) trees as numpy, with the zero-at-init noise
     weights and biases set so that every term of the epilogue counts."""
-    g = jax.tree_util.tree_map(np.asarray, generator_init(random.PRNGKey(0), G_CFG))
-    t = jax.tree_util.tree_map(np.asarray, generator_init(random.PRNGKey(1), T_CFG))
-    d = jax.tree_util.tree_map(np.asarray, discriminator_init(random.PRNGKey(2), D_CFG))
+    g = _jit_init(generator_init, 0, g_cfg)
+    t = _jit_init(generator_init, 1, t_cfg)
+    d = _jit_init(discriminator_init, 2, d_cfg)
     rng = np.random.RandomState(0)
     for tree in (g, t):
         for block in [tree["conv1"], *tree["convs"].values()]:
@@ -47,69 +56,113 @@ def jax_params():
     return g, t, d
 
 
-def write_checkpoints(dirpath):
+def bisenet_tree(width_scale, seed=0):
+    """A ``bisenet_init`` tree as numpy, with random eval statistics and
+    affine terms in every batch norm, so that the folded scale and shift
+    are not the identity."""
+    tree = _jit_init(bisenet_init, seed, width_scale=width_scale)
+    rng = np.random.RandomState(seed)
+
+    def visit(node):
+        for child in node.values():
+            if isinstance(child, dict) and "running_var" in child:
+                c = child["running_var"].shape[0]
+                child["running_mean"] = rng.normal(0, 0.1, c).astype(np.float32)
+                child["running_var"] = rng.uniform(0.5, 1.5, c).astype(np.float32)
+                child["weight"] = rng.uniform(0.8, 1.2, c).astype(np.float32)
+                child["bias"] = rng.normal(0, 0.1, c).astype(np.float32)
+            elif isinstance(child, dict):
+                visit(child)
+    visit(tree)
+    return tree
+
+
+# a width-0.25 parser whose parse of the tiny generators' images is not one
+# class (random parsers mostly parse every pixel as one class)
+PARSER_SEED = 2
+
+
+def aux_trees():
+    """(LPIPS, BiSeNet) trees of the full objective's aux nets, widths
+    scaled 0.25, as numpy."""
+    lp = _jit_init(lpips_init, 5, width_scale=0.25)
+    return lp, bisenet_tree(0.25, seed=PARSER_SEED)
+
+
+def coi_share(parser, img_nhwc):
+    """The share of pixels the mask keeps in ``img_nhwc``, parsed by the
+    port's ``parser``."""
+    from content_aware_gan_compression_torch.models import make_parse_fn
+    from content_aware_gan_compression_torch.pruning import (
+        batch_img_parsing, coi_mask_from_parsing)
+
+    parse = batch_img_parsing(img_nhwc, make_parse_fn(parser, "NHWC"), "NHWC")
+    return float(coi_mask_from_parsing(parse).float().mean())
+
+
+def write_checkpoints(dirpath, params=None):
     """student.npz {'g', 'g_ema', 'd'} and teacher.npz {'g_ema'}, as the JAX
-    package writes them."""
-    g, t, d = jax_params()
+    package writes them, from ``params`` (default ``jax_params()``)."""
+    g, t, d = params or jax_params()
     student, teacher = str(dirpath / "student.npz"), str(dirpath / "teacher.npz")
     jax_save_checkpoint(student, {"g": g, "g_ema": g, "d": d})
     jax_save_checkpoint(teacher, {"g_ema": t})
     return student, teacher
 
 
-def reals(n, seed=3):
-    return (np.random.RandomState(seed).rand(n, BATCH, SIZE, SIZE, 3) * 255).astype(np.uint8)
+def reals(n, seed=3, size=SIZE):
+    return (np.random.RandomState(seed).rand(n, BATCH, size, size, 3) * 255).astype(np.uint8)
 
 
 def _t(a):
     return torch.from_numpy(np.array(a))
 
 
-def _mix(key, cfg, batch):
-    zs, inject_index = _mixing_latents(key, batch, cfg, G_CFG.n_latent)
+def _mix(key, cfg, batch, g_cfg=G_CFG):
+    zs, inject_index = _mixing_latents(key, batch, cfg, g_cfg.n_latent)
     return [_t(z) for z in zs], torch.tensor(int(inject_index))
 
 
-def d_draws(key, cfg):
+def d_draws(key, cfg, g_cfg=G_CFG):
     """What the JAX d_step draws from its key."""
     k_mix, k_noise = random.split(key)
-    zs, idx = _mix(k_mix, cfg, cfg.batch_size)
+    zs, idx = _mix(k_mix, cfg, cfg.batch_size, g_cfg)
     return {"z": zs, "inject_index": idx,
-            "noise": [_t(n) for n in generator_make_noise(k_noise, G_CFG, cfg.batch_size)]}
+            "noise": [_t(n) for n in generator_make_noise(k_noise, g_cfg, cfg.batch_size)]}
 
 
-def g_draws(key, cfg):
+def g_draws(key, cfg, g_cfg=G_CFG, t_cfg=T_CFG):
     """What the JAX g_step draws from its key."""
     k_mix, k_noise, k_tnoise = random.split(key, 3)
-    zs, idx = _mix(k_mix, cfg, cfg.batch_size)
+    zs, idx = _mix(k_mix, cfg, cfg.batch_size, g_cfg)
     return {"z": zs, "inject_index": idx,
-            "noise": [_t(n) for n in generator_make_noise(k_noise, G_CFG, cfg.batch_size)],
-            "teacher_noise": [_t(n) for n in generator_make_noise(k_tnoise, T_CFG,
+            "noise": [_t(n) for n in generator_make_noise(k_noise, g_cfg, cfg.batch_size)],
+            "teacher_noise": [_t(n) for n in generator_make_noise(k_tnoise, t_cfg,
                                                                    cfg.batch_size)]}
 
 
-def g_reg_draws(key, cfg):
+def g_reg_draws(key, cfg, g_cfg=G_CFG):
     """What the JAX g_reg_step draws from its key, y unscaled."""
     batch = max(1, cfg.batch_size // cfg.path_reg_batch_shrink)
     k_mix, k_noise, k_ppl = random.split(key, 3)
     k_z, k_p, k_i = random.split(k_mix, 3)
     z = random.normal(k_z, (2, batch, cfg.latent))
     do_mix = random.uniform(k_p) < cfg.noise_mixing
-    idx = jnp.where(do_mix, random.randint(k_i, (), 1, G_CFG.n_latent), G_CFG.n_latent)
+    idx = jnp.where(do_mix, random.randint(k_i, (), 1, g_cfg.n_latent), g_cfg.n_latent)
     return {"z": [_t(z[0]), _t(z[1])], "inject_index": torch.tensor(int(idx)),
-            "noise": [_t(n) for n in generator_make_noise(k_noise, G_CFG, batch)],
-            "ppl_noise": _t(random.normal(k_ppl, (batch, SIZE, SIZE, 3)))}
+            "noise": [_t(n) for n in generator_make_noise(k_noise, g_cfg, batch)],
+            "ppl_noise": _t(random.normal(k_ppl, (batch, g_cfg.size, g_cfg.size, 3)))}
 
 
 def trainer_draws(jax_trainer, iter_idx):
     """The draws JAX's Trainer.step takes at ``iter_idx`` from its current
     key: on R1 iterations d_step and g_step get their keys directly, on the
     others the fused dg_step splits one key in two."""
-    cfg = jax_trainer.cfg
+    cfg, g_cfg, t_cfg = jax_trainer.cfg, jax_trainer.g_config, jax_trainer.teacher_config
     _, k_d, k_g, k_greg = random.split(jax_trainer.rng, 4)
     if iter_idx % cfg.d_reg_freq != 0:
         k_d, k_g = random.split(k_d)
-    draws = {"d": d_draws(k_d, cfg), "g": g_draws(k_g, cfg)}
+    draws = {"d": d_draws(k_d, cfg, g_cfg), "g": g_draws(k_g, cfg, g_cfg, t_cfg)}
     if iter_idx % cfg.g_reg_freq == 0:
-        draws["g_reg"] = g_reg_draws(k_greg, cfg)
+        draws["g_reg"] = g_reg_draws(k_greg, cfg, g_cfg)
     return draws
