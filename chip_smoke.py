@@ -6,7 +6,8 @@
 Phases, each of which exits non-zero on failure:
   1. print the card (nvidia-smi) and build the CUDA kernels from csrc/;
   2. hold each kernel against its plain PyTorch version on the card, at every
-     shape the 256px generator gives it and at ragged shapes (blur4 also at
+     shape the 256px generator gives it at batch 16 and at the evaluation's
+     batch of 64, and at ragged shapes (blur4 also at
      every up-blur of the 11x student at batch 16 and path batch 8, and on a
      view that is not 16-byte aligned); the same for masked_scale (the
      epilogue's backward) at every epilogue shape of the 11x student at
@@ -33,9 +34,10 @@ Phases, each of which exits non-zero on failure:
      inside (0, 1), and each phase launched each kernel, forward and
      backward, as often as the shapes require (train_phase_launches): the
      aux nets launch none;
-  7. one iteration at 64px, batch 4, TF32 off, on the card and on the CPU,
-     each against the CPU in float64, for both objectives (full_kd with
-     width-scaled aux nets, every run given the float64 run's class map):
+  7. one iteration at 64px, batch 4, TF32 off, on the card (cuDNN's
+     deterministic algorithms) and on the CPU, each against the CPU in
+     float64, for both objectives (full_kd with width-scaled aux nets, every
+     run given the float64 run's class map):
      losses and parameter gradients of each phase; and the share of pixels
      where the card's own parse agrees with float64's;
   8. run ``python -m content_aware_gan_compression_torch.train`` for 2
@@ -48,7 +50,28 @@ Phases, each of which exits non-zero on failure:
      images/s, the training iterations/s over one cadence window of 16
      iterations with the full objective and over its first 8 with KD-L1,
      with peak memory and where the device time goes, and LPIPS and the
-     parse alone at the G step's shapes.
+     parse alone at the G step's shapes;
+ 10. drive the FID path at 256px (get_fid's batch of 64, 2048 samples cut
+     from 50 000): the full-width generator (seed 0) and a full-width seeded
+     Inception; check 6 blur4 launches (float4) and 13 epilogue launches per
+     batch and none of masked_scale, finite features, the stream's FID against
+     its own statistics ~0 (through the overlapped eval on the same draws;
+     below 1e-4 of the next FID), against a second stream's > 0, without calc_fid's eps retry; and how far
+     the features and the FID move under cuDNN's TF32 (PyTorch's default);
+ 11. drive PPL at 256px (32 pairs per batch, 512 pairs cut from 5000) with a
+     full-width seeded LPIPS: the same launches per batch, finite distances
+     >= 0;
+ 12. the card against the CPU, TF32 off: the first FID batch's pool3
+     features, the stream's FID with that batch's features from the CPU, and
+     4 PPL distances;
+ 13. the evaluation CLIs on seeded files (calc_inception on a uint8 cache,
+     get_fid on its pickle, get_ppl on LPIPS files in the reference's
+     schemas) and the train CLI with --inception_ckpt and --real_stats, whose
+     overlapped in-loop FID logs a score for each model_save_freq;
+ 14. time the feature stream (samples/s; generator and Inception ms per
+     batch), Inception alone (TFLOP/s from its convolutions' shapes) and PPL
+     (pairs/s), with TF32 off and under the defaults, and peak memory of a
+     feature batch at fid_batch 32 and at 64.
 The last lines are a {"kernels": [...]} JSON line, the card's name and power
 limit, and {"ok": true, "device": {...}}. Needs a CUDA card; without one it
 exits non-zero and prints no result.
@@ -63,6 +86,7 @@ import struct
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -75,6 +99,13 @@ PATH_BATCH = 8
 # the 11x student: int(c * 0.7) channels removed from every layer of the
 # 256px generator's default net_shape (the JAX package's pruning rule)
 STUDENT_SHAPE = (154,) * 10 + (77, 77, 39, 39)
+# evaluation: get_fid's batch; samples cut from the reference's 50 000 (FID)
+# and 5000 (PPL) for time; PPL's batch of 32 pairs is 64 images
+FID_BATCH = 64
+FID_SAMPLES = 2048
+PPL_BATCH = 32
+PPL_SAMPLES = 512
+INCEPTION_SEED = 0
 
 
 def fail(msg):
@@ -124,15 +155,15 @@ def profile_forward(fn, iters=3, top=12, inference=True):
             "top": [[k[:80], round(t / total, 4)] for k, t in kernels[:top]]}
 
 
-def generator_layer_shapes():
+def generator_layer_shapes(batch=BATCH):
     """(blur4 input shapes, fused-epilogue shapes) of the 256px generator."""
     from content_aware_gan_compression_torch.models import GeneratorConfig
 
     ns = GeneratorConfig(size=SIZE).net_shape
-    blur = [(BATCH, 2 ** r + 1, 2 ** r + 1, ns[2 * (r - 2)])
+    blur = [(batch, 2 ** r + 1, 2 ** r + 1, ns[2 * (r - 2)])
             for r in range(3, int(np.log2(SIZE)) + 1)]
-    fused = [(BATCH, 4, 4, ns[1])] + [
-        (BATCH, 2 ** ((i + 5) // 2), 2 ** ((i + 5) // 2), ns[i + 1]) for i in range(1, len(ns) - 1)]
+    fused = [(batch, 4, 4, ns[1])] + [
+        (batch, 2 ** ((i + 5) // 2), 2 ** ((i + 5) // 2), ns[i + 1]) for i in range(1, len(ns) - 1)]
     return blur, fused
 
 
@@ -284,20 +315,21 @@ class FixedParse(torch.nn.Module):
         return (logits if data_format == "NHWC" else logits.permute(0, 3, 1, 2),)
 
 
-def write_aux_files(work, lpips, parser):
+def write_aux_files(work, lpips, parser=None):
     """``lpips`` and ``parser`` in the files the train CLI reads:
     torchvision's VGG16 (``features.N.*``), the reference's LPIPS heads
-    (``lin{k}.model.1.weight``) and 79999_iter.pth (``num_batches_tracked``
-    in every batch norm)."""
-    vgg = {f"features.{k}": v.cpu() for k, v in lpips.vgg.state_dict().items()}
-    lins = {f"lin{k}.model.1.weight": lin.weight.detach().cpu()
-            for k, lin in enumerate(lpips.lins)}
-    bisenet = {k: v.cpu() for k, v in parser.state_dict().items()}
-    for k in [k for k in bisenet if k.endswith("running_var")]:
-        bisenet[k[:-len("running_var")] + "num_batches_tracked"] = torch.tensor(79999)
-    paths = [os.path.join(work, name) for name in ("vgg16.pth", "lpips_lins.pth",
-                                                   "79999_iter.pth")]
-    for path, sd in zip(paths, (vgg, lins, bisenet)):
+    (``lin{k}.model.1.weight``) and, with a parser, 79999_iter.pth
+    (``num_batches_tracked`` in every batch norm)."""
+    files = {"vgg16.pth": {f"features.{k}": v.cpu() for k, v in lpips.vgg.state_dict().items()},
+             "lpips_lins.pth": {f"lin{k}.model.1.weight": lin.weight.detach().cpu()
+                                for k, lin in enumerate(lpips.lins)}}
+    if parser is not None:
+        bisenet = {k: v.cpu() for k, v in parser.state_dict().items()}
+        for k in [k for k in bisenet if k.endswith("running_var")]:
+            bisenet[k[:-len("running_var")] + "num_batches_tracked"] = torch.tensor(79999)
+        files["79999_iter.pth"] = bisenet
+    paths = [os.path.join(work, name) for name in files]
+    for path, sd in zip(paths, files.values()):
         torch.save(sd, path)
     return paths
 
@@ -372,6 +404,391 @@ def phase_counter(store):
 def max_rel_err(got, want):
     return (got - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
 
+def inception_conv_flops(inc, dev):
+    """Multiply-adds of every convolution of Inception for one 299px image,
+    read off the layers' shapes in a forward at batch 1, times 2."""
+    from content_aware_gan_compression_torch.models.inception import BasicConv2d
+
+    macs = []
+
+    def hook(module, args, out):
+        w = module.conv.weight
+        macs.append(out.shape[1] * w.shape[1] * w.shape[2] * w.shape[3] * out.shape[2]
+                    * out.shape[3])
+    handles = [m.register_forward_hook(hook) for m in inc.modules() if isinstance(m, BasicConv2d)]
+    with torch.inference_mode():
+        inc(torch.zeros(1, 3, 299, 299, device=dev), resize_input=False)
+    for h in handles:
+        h.remove()
+    return 2 * sum(macs), len(macs)
+
+
+def fid_quietly(calc_fid, *stats):
+    """calc_fid of two {'mean','cov'}; (score, whether it took the eps
+    retry for a singular product)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always", RuntimeWarning)
+        score = calc_fid(stats[0]["mean"], stats[0]["cov"], stats[1]["mean"], stats[1]["cov"])
+    return float(score), any("singular" in str(w.message) for w in caught)
+
+
+def eval_phases(g, dev, card, work):
+    """FID and PPL at 256px on the full-width generator ``g``: the feature
+    stream's and PPL's launches per batch, the card against the CPU, the
+    three evaluation CLIs and the train CLI's in-loop FID, and the rates.
+    Returns the kernels line's launch counts of the evaluation path."""
+    from content_aware_gan_compression_torch import calc_inception, get_fid, get_ppl
+    from content_aware_gan_compression_torch.bench_blur4 import time_ms
+    from content_aware_gan_compression_torch.evaluation import (
+        OverlappedFIDEval, calc_fid, extract_feature_from_samples, get_ppl_score)
+    from content_aware_gan_compression_torch.evaluation.fid import _draw_features, feature_stats
+    from content_aware_gan_compression_torch.evaluation.ppl import _ppl_batch
+    from content_aware_gan_compression_torch.models import InceptionV3, pool3_dim
+    from content_aware_gan_compression_torch.ops.cuda import counts, reset_counts
+    from content_aware_gan_compression_torch.utils import save_checkpoint
+
+    torch.backends.cudnn.allow_tf32 = False
+    inc = InceptionV3(device=dev, generator=torch.Generator().manual_seed(INCEPTION_SEED)).eval()
+    n_batch = FID_SAMPLES // FID_BATCH
+
+    def stream(seed, tf32):
+        torch.backends.cudnn.allow_tf32 = tf32
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feats = extract_feature_from_samples(g, inc, batch_size=FID_BATCH, n_sample=FID_SAMPLES,
+                                             generator=torch.Generator(dev).manual_seed(seed))
+        seconds = time.perf_counter() - t0  # ends in the features' copy to the host
+        torch.backends.cudnn.allow_tf32 = False
+        return feats, seconds, counts()
+
+    # -- 10. fid_path: the feature stream, 2048 samples in batches of 64 ------
+    feats, stream_s, c = stream(0, False)
+    want = {"blur4": 6 * n_batch, "blur4_vector": 6 * n_batch,
+            "fused_noise_bias_lrelu": 13 * n_batch, "masked_scale": 0, "blur4_backward": 0}
+    fid_launches = {k: c[k] for k in want}
+    stats = feature_stats(feats)
+    live = int((feats.std(0) > 0).sum())
+    rank = int(np.linalg.matrix_rank(stats["cov"]))
+    # the same draws again through the overlapped eval: the stream against its
+    # own statistics
+    ev = OverlappedFIDEval(g, inc, stats, batch_size=FID_BATCH, n_sample=FID_SAMPLES,
+                           generator=torch.Generator(dev).manual_seed(0))
+    self_fid = None
+    ticks = 0
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always", RuntimeWarning)
+        while self_fid is None:
+            self_fid = ev.advance(2)
+            ticks += 1
+    self_retry = any("singular" in str(w.message) for w in caught)
+    feats_b, _, _ = stream(1, False)
+    other_fid, other_retry = fid_quietly(calc_fid, feature_stats(feats_b), stats)
+    trace = float(np.trace(stats["cov"]))
+    detail("fid_path", size=SIZE, batch=FID_BATCH, samples=FID_SAMPLES,
+           cut="2048 samples of the reference's 50000, for time", batches=n_batch,
+           launches=fid_launches, launches_per_batch={k: v / n_batch for k, v in
+                                                      fid_launches.items()},
+           pool3_dim=pool3_dim(inc), inception=f"full width, seeded {INCEPTION_SEED}, unit BN",
+           features_finite=bool(np.isfinite(feats).all()), live_features=live, cov_rank=rank,
+           fid_self=self_fid, fid_self_overlapped_ticks=ticks, fid_other_stream=other_fid,
+           eps_retry={"self": self_retry, "other": other_retry}, cov_trace=trace, tf32=False)
+    if fid_launches != want:
+        fail(f"fid_path launched {fid_launches}, want {want}")
+    if feats.shape != (FID_SAMPLES, 2048) or not np.isfinite(feats).all():
+        fail(f"fid_path features {feats.shape} not finite or wrong shape")
+    if not (np.isfinite(other_fid) and other_fid > 0 and abs(self_fid) <= 1e-4 * other_fid):
+        fail(f"fid_path: FID against its own statistics {self_fid}, against another stream's "
+             f"{other_fid}")
+    if self_retry or other_retry:
+        fail("fid_path: calc_fid took the eps retry for a singular covariance product")
+
+    # TF32: the same latents under PyTorch's defaults (cuDNN TF32 on)
+    feats_tf32, stream_tf32_s, _ = stream(0, True)
+    tf32_fid, _ = fid_quietly(calc_fid, feature_stats(feats_tf32), stats)
+    tf32 = {"feature_max_abs_diff": float(np.abs(feats_tf32 - feats).max()),
+            "feature_max_abs": float(np.abs(feats).max()),
+            "feature_mean_abs_diff": float(np.abs(feats_tf32 - feats).mean()),
+            "fid_defaults_vs_tf32_off": tf32_fid, "fid_other_stream_tf32_off": other_fid}
+    detail("fid_tf32_sensitivity", samples=FID_SAMPLES, **tf32,
+           note="the same z and noise with cuDNN TF32 on (PyTorch's default) and off; both "
+                "the generator's and Inception's convolutions change")
+
+    # -- 11. ppl_path: 512 pairs in batches of 32 --------------------------------
+    lpips = seeded_lpips().to(dev).requires_grad_(False).eval()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ppl, dist = get_ppl_score(g, lpips, n_sample=PPL_SAMPLES, batch_size=PPL_BATCH,
+                              generator=torch.Generator(dev).manual_seed(0),
+                              return_distances=True)
+    ppl_s = time.perf_counter() - t0
+    c = counts()
+    ppl_batches = PPL_SAMPLES // PPL_BATCH
+    ppl_launches = {k: c[k] for k in want}
+    want_ppl = {"blur4": 6 * ppl_batches, "blur4_vector": 6 * ppl_batches,
+                "fused_noise_bias_lrelu": 13 * ppl_batches, "masked_scale": 0,
+                "blur4_backward": 0}
+    detail("ppl_path", size=SIZE, pairs_per_batch=PPL_BATCH, pairs=PPL_SAMPLES,
+           cut="512 pairs of the reference's 5000, for time", eps=1e-4, score=ppl,
+           distances={"min": float(dist.min()), "max": float(dist.max()),
+                      "mean": float(dist.mean())},
+           launches=ppl_launches, lpips="LPIPS-VGG16, full width, seed 5", tf32=False)
+    if ppl_launches != want_ppl:
+        fail(f"ppl_path launched {ppl_launches}, want {want_ppl}")
+    if dist.shape != (PPL_SAMPLES,) or not np.isfinite(dist).all() or not (dist >= 0).all():
+        fail(f"ppl_path distances {dist.shape} not finite or negative")
+
+    # -- 12. eval_cuda_vs_cpu: the first FID batch and 4 PPL pairs, TF32 off ----
+    gen = torch.Generator(dev).manual_seed(0)  # replays the stream's first batch
+    z = torch.randn(FID_BATCH, g.config.style_dim, generator=gen, device=dev)
+    with torch.inference_mode():
+        img = g([z], generator=gen)
+        on_card = inc(img, normalize_input=False).cpu().numpy()
+    inc_cpu = copy.deepcopy(inc).to("cpu")
+    with torch.inference_mode():
+        on_cpu = inc_cpu(img.cpu(), normalize_input=False).numpy()
+    feat_err = float(np.abs(on_card - on_cpu).max() / np.abs(on_cpu).max())
+    replay_err = float(np.abs(on_card - feats[:FID_BATCH]).max())
+    swapped = feats.copy()
+    swapped[:FID_BATCH] = on_cpu
+    swap_fid, _ = fid_quietly(calc_fid, feature_stats(swapped), stats)
+
+    g_cpu = copy.deepcopy(g).to("cpu")
+    lpips_cpu = copy.deepcopy(lpips).to("cpu")
+    crng = torch.Generator().manual_seed(3)
+    z = torch.randn(8, g.config.style_dim, generator=crng)
+    t = torch.rand(4, generator=crng)
+    noise = g_cpu.make_noise(8, crng)
+    d_card = _ppl_batch(g, lpips, z.to(dev), t.to(dev), 1e-4,
+                        noise=[n.to(dev) for n in noise]).cpu().numpy()
+    d_cpu = _ppl_batch(g_cpu, lpips_cpu, z, t, 1e-4, noise=noise).numpy()
+    ppl_err = float(np.abs(d_card - d_cpu).max() / np.abs(d_cpu).max())
+    detail("eval_cuda_vs_cpu", tf32=False, features_images=FID_BATCH,
+           features_max_rel_err=feat_err, features_tolerance="1e-3 of the CPU's max |feature|",
+           features_vs_stream_max_abs_diff=replay_err,
+           fid_stream_with_cpu_batch_vs_stream=swap_fid,
+           fid_tolerance="below 1e-3 of the FID between two streams",
+           ppl_pairs=4, ppl_card=d_card.tolist(), ppl_cpu=d_cpu.tolist(), ppl_max_rel_err=ppl_err,
+           ppl_tolerance="5e-2 of the CPU's largest distance (eps 1e-4: the pair's images "
+                         "differ by about 1e-4)")
+    if not feat_err <= 1e-3 or not abs(swap_fid) <= 1e-3 * other_fid or not ppl_err <= 5e-2:
+        fail(f"evaluation on the card vs the CPU: features {feat_err}, FID {swap_fid}, "
+             f"PPL {ppl_err}")
+    del g_cpu, lpips_cpu, inc_cpu, img
+
+    # -- 13. eval_cli: the three CLIs on seeded files, and the in-loop FID ------
+    # A width-1/8 Inception (pool3 dim 256) in the pytorch-fid schema keeps
+    # the statistics of 512 images full rank; LPIPS files at full width.
+    os.makedirs(work, exist_ok=True)
+    small = InceptionV3(0.125, device="cpu", generator=torch.Generator().manual_seed(1))
+    inc_file = os.path.join(work, "pt_inception_w0.125.pth")
+    sd = {k: v for k, v in small.state_dict().items()}
+    for k in [k for k in sd if k.endswith("running_var")]:
+        sd[k[:-len("running_var")] + "num_batches_tracked"] = torch.tensor(0)
+    sd.update({"fc.weight": torch.zeros(1008, 256), "fc.bias": torch.zeros(1008)})
+    torch.save(sd, inc_file)
+    cache = os.path.join(work, "real256_seeded.npy")
+    np.save(cache, np.random.RandomState(4).randint(0, 256, (512, SIZE, SIZE, 3), dtype=np.uint8))
+    ckpt = os.path.join(work, "g256_seed0.npz")
+    save_checkpoint(ckpt, {"g_ema": g.state_dict()}, metadata={"size": SIZE, "seed": 0})
+    vgg_file, lins_file = write_aux_files(work, lpips)
+    cli = {}
+    t0 = time.time()
+    stats_file = calc_inception.main([cache, "--size", str(SIZE), "--batch", "64",
+                                      "--inception_ckpt", inc_file, "--output",
+                                      os.path.join(work, "inception_real256.pkl"),
+                                      "--device", "cuda"])
+    cli["calc_inception_s"] = round(time.time() - t0, 3)
+    t0 = time.time()
+    cli["fid"] = float(get_fid.main(["--ckpt", ckpt, "--generated_img_size", str(SIZE),
+                                     "--real_stats", stats_file, "--n_sample", "512",
+                                     "--inception_ckpt", inc_file, "--device", "cuda"]))
+    cli["get_fid_s"] = round(time.time() - t0, 3)
+    t0 = time.time()
+    cli["ppl"] = float(get_ppl.main(["--ckpt", ckpt, "--generated_img_size", str(SIZE),
+                                     "--n_sample", "64", "--batch_size", "32",
+                                     "--lpips_vgg_ckpt", vgg_file, "--lpips_lins_ckpt",
+                                     lins_file, "--device", "cuda"]))
+    cli["get_ppl_s"] = round(time.time() - t0, 3)
+    student, teacher = write_train_checkpoints(work, SIZE)
+    root = os.path.join(work, "cli_fid")
+    t0 = time.time()
+    proc = subprocess.run([
+        sys.executable, "-m", "content_aware_gan_compression_torch.train", "--path", cache,
+        "--size", str(SIZE), "--ckpt", student, "--teacher_ckpt", teacher,
+        "--batch_size", str(BATCH), "--iter", "8", "--n_sample", "4",
+        "--val_sample_freq", "100", "--model_save_freq", "3", "--fid_n_sample", "512",
+        "--fid_batch", "64", "--inception_ckpt", inc_file, "--real_stats", stats_file,
+        "--exp_root", root], cwd=REPO, capture_output=True, text=True, timeout=600)
+    cli["train_in_loop_fid_s"] = round(time.time() - t0, 3)
+    if proc.returncode != 0:
+        fail(f"train CLI with in-loop FID rc {proc.returncode}: {proc.stderr[-3000:]}")
+    (exp,) = [os.path.join(root, d) for d in os.listdir(root) if d.startswith("Exp_")]
+    with open(os.path.join(exp, "metrics.jsonl")) as f:
+        fid_recs = [r for r in map(json.loads, f) if "fid" in r]
+    cli["train_fid_records"] = fid_recs
+    detail("eval_cli", **cli, inception="width 1/8, seeded, pytorch-fid schema",
+           real="512 seeded uint8 images at 256px",
+           train="11x student, KD-L1, 8 iterations, FID of 512 samples every 3, overlapped")
+    if not (np.isfinite(cli["fid"]) and cli["fid"] > 0 and np.isfinite(cli["ppl"])
+            and cli["ppl"] >= 0):
+        fail(f"eval CLIs: {cli}")
+    if [r["iter"] for r in fid_recs] != [3, 6] or not all(np.isfinite(r["fid"])
+                                                        for r in fid_recs):
+        fail(f"train CLI in-loop FID records {fid_recs}, want iterations 3 and 6")
+    shutil.rmtree(work)
+
+    # -- 14. times: the stream, Inception alone, PPL, peak memory ---------------
+    flops, n_convs = inception_conv_flops(inc, dev)
+    x64 = torch.randn(FID_BATCH, 3, SIZE, SIZE, device=dev).clamp(-1, 1)
+    z64 = torch.randn(FID_BATCH, g.config.style_dim, device=dev)
+    noise64 = g.make_noise(FID_BATCH, torch.Generator(dev).manual_seed(9))
+    rates = {}
+    for label, tf32 in (("tf32_off", False), ("pytorch_defaults", True)):
+        torch.backends.cudnn.allow_tf32 = tf32
+        with torch.inference_mode():
+            g_ms = time_ms(lambda: g([z64], noise=noise64), iters=10)
+            inc_ms = time_ms(lambda: inc(x64, normalize_input=False), iters=10)
+        rates[label] = {"generator_ms_per_batch": g_ms, "inception_ms_per_batch": inc_ms,
+                        "inception_tflop_per_s": FID_BATCH * flops / inc_ms / 1e9}
+    torch.backends.cudnn.allow_tf32 = True
+    gen = torch.Generator(dev).manual_seed(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    get_ppl_score(g, lpips, n_sample=4 * PPL_BATCH, batch_size=PPL_BATCH, generator=gen)
+    ppl_defaults_s = time.perf_counter() - t0
+    torch.backends.cudnn.allow_tf32 = False
+    rates["tf32_off"].update(fid_samples_per_s=FID_SAMPLES / stream_s,
+                             ppl_pairs_per_s=PPL_SAMPLES / ppl_s)
+    rates["pytorch_defaults"].update(fid_samples_per_s=FID_SAMPLES / stream_tf32_s,
+                                     ppl_pairs_per_s=4 * PPL_BATCH / ppl_defaults_s)
+    memory = {}
+    for batch in (32, FID_BATCH):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _draw_features(g, inc, batch, torch.Generator(dev).manual_seed(0), 1.0, None)
+        torch.cuda.synchronize()
+        memory[f"batch_{batch}"] = {"peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                                    "above_resident_gb": (torch.cuda.max_memory_allocated()
+                                                          - base) / 1e9}
+    memory["g_ema_snapshot_gb"] = sum(t.numel() * t.element_size()
+                                      for t in g.state_dict().values()) / 1e9
+    detail("eval_rate", size=SIZE, fid_batch=FID_BATCH, ppl_pairs_per_batch=PPL_BATCH,
+           inception_gflop_per_image=flops / 1e9, inception_convs=n_convs, **rates,
+           peak_memory=memory, card=card,
+           note="stream rates: host clock over the whole stream (2048 samples; PPL 512 pairs "
+                "with TF32 off, 128 under the defaults) ending in the copy to the host; "
+                "generator and Inception ms: median of 10 calls, CUDA events; FLOPs: the "
+                "convolutions' multiply-adds x 2")
+    del inc, lpips, x64
+    return {"fid": fid_launches, "ppl": ppl_launches}
+
+
+def train_vs_float64(work, dev, objectives=("kd_l1", "full_kd")):
+    """One iteration at 64px, batch 4, TF32 off, on the card and on the CPU,
+    each held against the CPU in float64, per phase; fails on a phase where
+    the card is further from float64 than the bound. Returns the distances.
+
+    The path-length and R1 gradients are grads of grads, and fp32 rounds
+    them by up to 1% on either device. So the card and the CPU, both in
+    fp32, are each held against the same iteration in float64 on the CPU:
+    per phase, the card may be no further from it than twice the CPU's own
+    fp32 distance, plus 1e-4. With the full objective every run masks with
+    the float64 run's class map: an argmax may flip where two logits tie
+    within rounding, which would measure the tie, not the port.
+
+    The card runs cuDNN's deterministic algorithms here. The default ones
+    sum with atomics in a varying order, and the gradient of the student's
+    last noise weight (a scalar, 0.0094 in float64, the sum of terms of both
+    signs over a [4,64,64,C] map) then moves from run to run by up to 6e-3
+    of its value, on the parent commit's code too; deterministic algorithms
+    give the same result in every run."""
+    from content_aware_gan_compression_torch.train import Trainer
+
+    s_small, t_small = write_train_checkpoints(work, 64)
+    real64 = torch.from_numpy(np.random.RandomState(1).randint(
+        0, 256, (4, 64, 64, 3), dtype=np.uint8)).float() / 127.5 - 1.0
+    trained = {"d": "d", "d_reg": "d", "g": "g", "g_reg": "g"}
+    small_checks = {}
+    for objective in objectives:
+        # lr 0: Adam's first step is about lr * sign(g), so a weight whose
+        # gradient is near 0 would move apart on the two devices and every
+        # later phase would start from other weights; with lr 0 each phase
+        # compares the same computation on the same weights
+        cfg64 = train_config(64, 4, s_small, t_small, objective, init_lr=0.0)
+        aux = {"lpips_params": seeded_lpips(0.25).state_dict()} if objective == "full_kd" else {}
+        runs = {"cpu": Trainer(cfg64, device="cpu", **aux),
+                "card": Trainer(cfg64, device=dev, **aux),
+                "f64": Trainer(cfg64, device="cpu", **aux)}
+        for module in (runs["f64"].g, runs["f64"].d, runs["f64"].teacher, runs["f64"].lpips):
+            if module is not None:
+                module.double()
+        draws = runs["cpu"].draw(0)
+        f64_draws = {ph: {k: ([t.double() for t in v] if isinstance(v, list)
+                              else v.double() if v.is_floating_point() else v)
+                          for k, v in d.items()} for ph, d in draws.items()}
+        agree = None
+        if objective == "full_kd":
+            from content_aware_gan_compression_torch.models import make_parse_fn
+            from content_aware_gan_compression_torch.pruning import batch_img_parsing
+
+            maps = {}
+            for key in ("cpu", "f64", "card"):  # the parser is picked on the CPU's images
+                tr, g_draw = runs[key], to_device(
+                    f64_draws["g"] if key == "f64" else draws["g"], runs[key].device)
+                with torch.no_grad():
+                    img = tr.teacher(g_draw["z"], inject_index=g_draw["inject_index"],
+                                     noise=g_draw["teacher_noise"], output_format="NHWC")
+                if key == "cpu":
+                    parser64, parser64_seed, _ = pick_parser(img, width_scale=0.25)
+                    continue
+                net = copy.deepcopy(parser64).to(tr.device, img.dtype)
+                maps[key] = batch_img_parsing(img, make_parse_fn(net, "NHWC"), "NHWC").cpu()
+            agree = (maps["card"] == maps["f64"]).float().mean().item()
+            for tr in runs.values():
+                tr.parser = FixedParse(maps["f64"]).to(tr.device)
+        results = {}
+        for key, tr in runs.items():
+            dtype = torch.float64 if key == "f64" else torch.float32
+            store = results[key] = {}
+
+            def hook(name, store=store, tr=tr):
+                if name in trained:
+                    store[name] = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+                                   .detach().cpu().double()
+                                   for n, p in getattr(tr, trained[name]).named_parameters()}
+            metrics, _ = tr.step(0, real64.to(tr.device, dtype),
+                                 torch.zeros((), device=tr.device, dtype=dtype),
+                                 draws=to_device(f64_draws if key == "f64" else draws, tr.device),
+                                 phase_hook=hook)
+            store["losses"] = {k: v.item() for k, v in metrics.items()}
+
+        def distance(key, results=results):
+            losses = max(abs(v - results["f64"]["losses"][k])
+                         / max(abs(results["f64"]["losses"][k]), 1e-6)
+                         for k, v in results[key]["losses"].items())
+            grads = {ph: max(max_rel_err(results[key][ph][n], g)
+                             for n, g in results["f64"][ph].items()) for ph in trained}
+            return {"losses": losses, **grads}
+
+        cpu_err, card_err = distance("cpu"), distance("card")
+        small_checks[objective] = {"card_vs_float64": card_err, "cpu_vs_float64": cpu_err,
+                                   "losses_float64": results["f64"]["losses"]}
+        if agree is not None:
+            small_checks[objective].update(
+                parse_agreement_card_vs_float64=agree, parser_seed=parser64_seed,
+                aux="LPIPS and BiSeNet widths scaled 0.25, seeded")
+        bad = {k: (card_err[k], cpu_err[k]) for k in card_err
+               if not card_err[k] <= 2 * cpu_err[k] + 1e-4}
+        if bad:
+            fail(f"training ({objective}) on the card vs float64 on the CPU: {bad}")
+        if objective == "full_kd" and not results["f64"]["losses"]["kd_lpips_loss"] > 0:
+            fail("64px full_kd: the LPIPS term is 0")
+        del runs, results
+    return small_checks
+
 
 def main():
     t_start = time.time()
@@ -407,9 +824,11 @@ def main():
     rng = torch.Generator(dev).manual_seed(0)
     k4 = make_kernel([1, 3, 3, 1])
     blur_shapes, fused_shapes = generator_layer_shapes()
+    # the evaluation path's shapes: a FID batch of 64, a PPL batch of 32 pairs
+    eval_blur_shapes, eval_fused_shapes = generator_layer_shapes(FID_BATCH)
     # (shape, pad, gain, misaligned view)
     blur_cases = [(s, (1, 1), 4.0, False) for s in blur_shapes + student_blur_shapes(BATCH)
-                  + student_blur_shapes(PATH_BATCH)] + [
+                  + student_blur_shapes(PATH_BATCH) + eval_blur_shapes] + [
         ((3, 13, 9, 3), (2, 1), 1.0, False), ((2, 17, 11, 12), (2, 2), 4.0, False),
         ((2, 10, 15, 130), (1, 1), 1.0, False), ((1, 7, 7, 130), (2, 1), 4.0, False),
         ((2, 9, 8, 12), (1, 1), 4.0, False), ((3, 11, 13, 3), (2, 2), 1.0, False),
@@ -436,7 +855,7 @@ def main():
         fail(f"blur4 launched {blur_counts}, want {len(blur_cases)} with {want_vector} "
              "of them float4")
 
-    fused_cases = [(s, s[0]) for s in fused_shapes] + [
+    fused_cases = [(s, s[0]) for s in fused_shapes + eval_fused_shapes] + [
         ((2, 5, 7, 3), 2), ((2, 6, 6, 130), 1), ((16, 8, 8, 512), 1)]
     fused_err = 0.0
     for shape, noise_batch in fused_cases:
@@ -654,94 +1073,11 @@ def main():
         fail(f"full_kd: the mask keeps {coi} of the teacher's pixels at iteration 0")
 
     # -- 7. one iteration at 64px on the card against the CPU ------------------
-    # The path-length and R1 gradients are grads of grads, and fp32 rounds
-    # them by up to 1% on either device. So the card and the CPU, both in
-    # fp32, are each held against the same iteration in float64 on the CPU:
-    # per phase, the card may be no further from it than twice the CPU's
-    # own fp32 distance, plus 1e-4. With the full objective every run masks
-    # with the float64 run's class map: an argmax may flip where two logits
-    # tie within rounding, which would measure the tie, not the port.
-    s_small, t_small = write_train_checkpoints(work, 64)
-    real64 = torch.from_numpy(np.random.RandomState(1).randint(
-        0, 256, (4, 64, 64, 3), dtype=np.uint8)).float() / 127.5 - 1.0
-    trained = {"d": "d", "d_reg": "d", "g": "g", "g_reg": "g"}
-    small_checks = {}
-    for objective in ("kd_l1", "full_kd"):
-        # lr 0: Adam's first step is about lr * sign(g), so a weight whose
-        # gradient is near 0 would move apart on the two devices and every
-        # later phase would start from other weights; with lr 0 each phase
-        # compares the same computation on the same weights
-        cfg64 = train_config(64, 4, s_small, t_small, objective, init_lr=0.0)
-        aux = {"lpips_params": seeded_lpips(0.25).state_dict()} if objective == "full_kd" else {}
-        runs = {"cpu": Trainer(cfg64, device="cpu", **aux),
-                "card": Trainer(cfg64, device=dev, **aux),
-                "f64": Trainer(cfg64, device="cpu", **aux)}
-        for module in (runs["f64"].g, runs["f64"].d, runs["f64"].teacher, runs["f64"].lpips):
-            if module is not None:
-                module.double()
-        draws = runs["cpu"].draw(0)
-        f64_draws = {ph: {k: ([t.double() for t in v] if isinstance(v, list)
-                              else v.double() if v.is_floating_point() else v)
-                          for k, v in d.items()} for ph, d in draws.items()}
-        agree = None
-        if objective == "full_kd":
-            from content_aware_gan_compression_torch.models import make_parse_fn
-            from content_aware_gan_compression_torch.pruning import batch_img_parsing
-
-            maps = {}
-            for key in ("cpu", "f64", "card"):  # the parser is picked on the CPU's images
-                tr, g_draw = runs[key], to_device(
-                    f64_draws["g"] if key == "f64" else draws["g"], runs[key].device)
-                with torch.no_grad():
-                    img = tr.teacher(g_draw["z"], inject_index=g_draw["inject_index"],
-                                     noise=g_draw["teacher_noise"], output_format="NHWC")
-                if key == "cpu":
-                    parser64, parser64_seed, _ = pick_parser(img, width_scale=0.25)
-                    continue
-                net = copy.deepcopy(parser64).to(tr.device, img.dtype)
-                maps[key] = batch_img_parsing(img, make_parse_fn(net, "NHWC"), "NHWC").cpu()
-            agree = (maps["card"] == maps["f64"]).float().mean().item()
-            for tr in runs.values():
-                tr.parser = FixedParse(maps["f64"]).to(tr.device)
-        results = {}
-        for key, tr in runs.items():
-            dtype = torch.float64 if key == "f64" else torch.float32
-            store = results[key] = {}
-
-            def hook(name, store=store, tr=tr):
-                if name in trained:
-                    store[name] = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
-                                   .detach().cpu().double()
-                                   for n, p in getattr(tr, trained[name]).named_parameters()}
-            metrics, _ = tr.step(0, real64.to(tr.device, dtype),
-                                 torch.zeros((), device=tr.device, dtype=dtype),
-                                 draws=to_device(f64_draws if key == "f64" else draws, tr.device),
-                                 phase_hook=hook)
-            store["losses"] = {k: v.item() for k, v in metrics.items()}
-
-        def distance(key, results=results):
-            losses = max(abs(v - results["f64"]["losses"][k])
-                         / max(abs(results["f64"]["losses"][k]), 1e-6)
-                         for k, v in results[key]["losses"].items())
-            grads = {ph: max(max_rel_err(results[key][ph][n], g)
-                             for n, g in results["f64"][ph].items()) for ph in trained}
-            return {"losses": losses, **grads}
-
-        cpu_err, card_err = distance("cpu"), distance("card")
-        small_checks[objective] = {"card_vs_float64": card_err, "cpu_vs_float64": cpu_err,
-                                   "losses_float64": results["f64"]["losses"]}
-        if agree is not None:
-            small_checks[objective].update(
-                parse_agreement_card_vs_float64=agree, parser_seed=parser64_seed,
-                aux="LPIPS and BiSeNet widths scaled 0.25, seeded")
-        bad = {k: (card_err[k], cpu_err[k]) for k in card_err
-               if not card_err[k] <= 2 * cpu_err[k] + 1e-4}
-        if bad:
-            fail(f"training ({objective}) on the card vs float64 on the CPU: {bad}")
-        if objective == "full_kd" and not results["f64"]["losses"]["kd_lpips_loss"] > 0:
-            fail("64px full_kd: the LPIPS term is 0")
-        del runs, results
-    detail("train_cuda_vs_cpu", size=64, batch=4, tf32=False, lr=0.0, **small_checks,
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                     allow_tf32=False):
+        small_checks = train_vs_float64(work, dev)
+    detail("train_cuda_vs_cpu", size=64, batch=4, tf32=False, lr=0.0,
+           cudnn_deterministic=True, **small_checks,
            measure="largest |a-b| / max|float64| over each phase's parameter tensors",
            tolerance="card <= 2 * cpu + 1e-4, per phase and for the losses")
 
@@ -913,6 +1249,8 @@ def main():
                 "student's input gradient back")
     del trainer, full, x_s, x_t
 
+    eval_launches = eval_phases(g, dev, card, os.path.join(REPO, "build", "chip_smoke"))
+
     kernels = [
         {"name": "blur4", "route": "cuda",
          "source": "content_aware_gan_compression_torch/csrc/blur4.cu",
@@ -923,6 +1261,8 @@ def main():
          "vector_launches": full_launches["blur4_vector"],
          "launches_kd_l1": train_launches["blur4"] + train_launches["blur4_backward"],
          "launches_generate": launches["blur4"], "vector_launches_generate": generate_vector,
+         "launches_fid": eval_launches["fid"]["blur4"],
+         "launches_ppl": eval_launches["ppl"]["blur4"],
          "max_abs_err": blur_err, "max_rel_err_backward": bw_blur_err,
          **{k: blur_times[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                           "library_ms", "shape")},
@@ -932,7 +1272,9 @@ def main():
          "replaces": "content_aware_gan_compression_tpu/ops/pallas/fused_act_pallas.py:50",
          "launches": full_launches["fused_noise_bias_lrelu"],
          "launches_kd_l1": train_launches["fused_noise_bias_lrelu"],
-         "launches_generate": launches["fused_noise_bias_lrelu"], "max_abs_err": fused_err,
+         "launches_generate": launches["fused_noise_bias_lrelu"],
+         "launches_fid": eval_launches["fid"]["fused_noise_bias_lrelu"],
+         "launches_ppl": eval_launches["ppl"]["fused_noise_bias_lrelu"], "max_abs_err": fused_err,
          "max_rel_err_backward": bw_fused_err,
          "ms": fused_ms, "plain_ms": fused_plain_ms, "bound_ms": fused_bound,
          "bound_by": fused_by, "library_ms": None, "shape": list(f_shape)},
@@ -940,7 +1282,9 @@ def main():
          "source": "content_aware_gan_compression_torch/csrc/masked_scale.cu",
          "replaces": "content_aware_gan_compression_tpu/ops/pallas/fused_act_pallas.py:73",
          "launches": full_launches["masked_scale"],
-         "launches_kd_l1": train_launches["masked_scale"], "max_abs_err": ms_err, "ms": ms_ms,
+         "launches_kd_l1": train_launches["masked_scale"],
+         "launches_fid": eval_launches["fid"]["masked_scale"],
+         "launches_ppl": eval_launches["ppl"]["masked_scale"], "max_abs_err": ms_err, "ms": ms_ms,
          "plain_ms": ms_plain_ms, "bound_ms": ms_bound, "bound_by": ms_by,
          "library_ms": ms_lib_ms, "library": "aten.leaky_relu_backward (no sqrt(2), mask > 0)",
          "shape": list(m_shape)},

@@ -9,8 +9,10 @@ Ported so far: the generator and ``generate``; the discriminator, the
 losses, the four training steps and the ``Trainer`` with its CLI
 (``python -m content_aware_gan_compression_torch.train``), with the
 reference's default objective: content-aware KD (BiSeNet's parse of the
-teacher masks both images) plus LPIPS-VGG16. Entry points run on ``cuda``
-unless the caller passes ``device="cpu"``.
+teacher masks both images) plus LPIPS-VGG16; FID (the FID InceptionV3) and
+PPL, in the loop and from their CLIs (``calc_inception``, ``get_fid``,
+``get_ppl``). Entry points run on ``cuda`` unless the caller passes
+``device="cpu"``.
 """
 
 __version__ = "0.1.0"

@@ -4,8 +4,10 @@ JAX package's ``data/dataset.py`` cache path; numpy only).
 A cache is one ``.npy`` array uint8 [N, size, size, 3], built from an image
 folder by the JAX package's ``prepare_data.py``/``build_uint8_cache``. Reads
 are memmap copies, and flips happen at read time, as in the reference's train
-transform (train.py:463-470). Decoding image files is not ported: the card's
-machine has no image library, so a folder without a cache raises.
+transform (train.py:463-470). Training reads caches only: a folder without a
+cache raises. ``ImageFolderDataset`` decodes image files with Pillow for the
+real-image statistics (``calc_inception``, ``compute_real_stats_from_folder``);
+Pillow is imported only when a folder is opened.
 """
 
 from __future__ import annotations
@@ -13,6 +15,46 @@ from __future__ import annotations
 import os
 
 import numpy as np
+
+IMAGE_EXTENSIONS = (".png", ".jpg", ".jpeg", ".webp", ".bmp")
+
+
+def _pillow():
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError("decoding an image folder needs Pillow, which is not installed; "
+                          "read a uint8 .npy cache instead") from e
+    return Image
+
+
+class ImageFolderDataset:
+    """The sorted images of a folder (reference dataset.py:8-28), each read
+    as uint8 [size, size, 3]: flipped with probability 1/2 if
+    ``random_flip``, then resized with Lanczos, the filter of the
+    reference's dataset preparation (Miscellaneous/prepare_data.py:23), when
+    not already at ``size``."""
+
+    def __init__(self, image_folder: str, size: int, random_flip: bool = True):
+        self.images_list = sorted(os.path.join(image_folder, f) for f in os.listdir(image_folder)
+                                  if f.lower().endswith(IMAGE_EXTENSIONS))
+        if not self.images_list:
+            raise ValueError(f"no images in {image_folder}")
+        _pillow()
+        self.size = size
+        self.random_flip = random_flip
+
+    def __len__(self):
+        return len(self.images_list)
+
+    def load_uint8(self, index: int, rng: np.random.Generator | None) -> np.ndarray:
+        image = _pillow()
+        img = image.open(self.images_list[index]).convert("RGB")
+        if self.random_flip and rng.random() < 0.5:
+            img = img.transpose(image.FLIP_LEFT_RIGHT)
+        if img.size != (self.size, self.size):
+            img = img.resize((self.size, self.size), image.LANCZOS)
+        return np.asarray(img, np.uint8)
 
 
 class Uint8CacheDataset:

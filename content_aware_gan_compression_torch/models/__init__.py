@@ -1,7 +1,8 @@
-"""StyleGAN2 generator and discriminator, and the KD objective's aux nets:
-LPIPS-VGG16 and the BiSeNet face parser."""
+"""StyleGAN2 generator and discriminator, the KD objective's aux nets
+(LPIPS-VGG16 and the BiSeNet face parser) and FID's InceptionV3."""
 
 from .bisenet import BISENET_WIDTHS, N_CLASSES, BiSeNet, bisenet_widths, load_bisenet, make_parse_fn
+from .inception import POOL3_DIM, InceptionV3, load_fid_inception, pool3_dim
 from .lpips import (
     LPIPS,
     LPIPS_CHANNELS,
@@ -28,4 +29,4 @@ __all__ = ["Discriminator", "DiscriminatorConfig", "Generator", "GeneratorConfig
            "net_shape_from_params", "BISENET_WIDTHS", "N_CLASSES", "BiSeNet", "bisenet_widths",
            "load_bisenet", "make_parse_fn", "LPIPS", "LPIPS_CHANNELS", "VGG16_CONVS",
            "VGG16Features", "import_lpips_lins", "import_vgg16_features", "load_lpips",
-           "vgg16_widths"]
+           "vgg16_widths", "POOL3_DIM", "InceptionV3", "load_fid_inception", "pool3_dim"]

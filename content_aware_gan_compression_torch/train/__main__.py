@@ -17,6 +17,12 @@ LPIPS heads from ``--lpips_lins_ckpt`` (the reference's
 ``lpips/weights/v0.1/vgg.pth``, ``lin{k}.model.1.weight``). When the BiSeNet
 or VGG16 file is absent, this prints the JAX CLI's warning and drops that
 term, as the JAX CLI does.
+
+``--real_stats`` (an Inception statistics pickle, from ``calc_inception``)
+with the FID Inception weights at ``--inception_ckpt`` (the pytorch-fid
+release) adds the FID of ``g_ema`` every ``--model_save_freq`` iterations,
+overlapped with training; without the weights file it is skipped, as in the
+JAX CLI.
 """
 
 from __future__ import annotations
@@ -99,8 +105,6 @@ def config_from_args(args):
         fid_n_sample=args.fid_n_sample, fid_batch=args.fid_batch, teacher=args.teacher_ckpt,
         kd_l1_lambda=args.kd_l1_lambda, kd_lpips_lambda=args.kd_lpips_lambda,
         kd_mode=args.kd_mode, content_aware_KD=args.content_aware_KD, seed=args.seed)
-    if args.real_stats and os.path.exists(args.inception_ckpt):
-        raise NotImplementedError("in-loop FID is not ported yet; drop --real_stats")
     return cfg
 
 
@@ -127,16 +131,28 @@ def aux_nets_from_args(args, cfg):
     return cfg, lpips, parser
 
 
+def fid_from_args(args):
+    """(InceptionV3 or None, real-stats path or None): the in-loop FID runs
+    when ``--real_stats`` is given and ``--inception_ckpt`` exists, as in the
+    JAX CLI (train.py:167-177)."""
+    if not (args.real_stats and os.path.exists(args.inception_ckpt)):
+        return None, None
+    from ..models import load_fid_inception
+
+    return load_fid_inception(args.inception_ckpt, device="cpu"), args.real_stats
+
+
 def main(argv=None):
     args = parse_args(argv)
     cfg, lpips, parser = aux_nets_from_args(args, config_from_args(args))
+    inception, real_stats = fid_from_args(args)
 
     from ..utils import ExperimentLogger
     from .loop import Trainer
 
     logger = ExperimentLogger(args.exp_root)
     trainer = Trainer(cfg, device=args.device, exp_root=args.exp_root, lpips_params=lpips,
-                      parse_params=parser)
+                      parse_params=parser, inception_params=inception, real_stats=real_stats)
     status = (
         "\n--------------- Training Start ---------------\n\n"
         f"Params:\n\n  Model and Data:\n"

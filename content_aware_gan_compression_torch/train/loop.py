@@ -1,11 +1,13 @@
 """The distillation retraining loop (reference train.py:341-452; the JAX
 package's train/loop.py): D and G steps with the lazy regularizers' cadence,
-EMA, reference-format logs, sample grids and checkpoints with optimizer
-state, on one card.
+EMA, reference-format logs, sample grids, in-loop FID and checkpoints with
+optimizer state, on one card.
 
 Not ported, because they answer TPU and relay costs that a card on PCIe does
-not have: the input-put probe and controller, the K-step scan window and
-data echoing. In-loop FID waits for the FID port and raises when asked for.
+not have: the input-put probe and controller, the K-step scan window, data
+echoing, and the in-loop FID's fallbacks to a synchronous or half-batch pass
+when the TPU's 16 GB run out (the eval's extra memory on the card is
+measured by chip_smoke.py; ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -17,11 +19,12 @@ import time
 import torch
 
 from ..data import infinite_loader, open_dataset
+from ..evaluation.fid import OverlappedFIDEval, get_model_fid_score
 from ..models.stylegan2 import Discriminator, DiscriminatorConfig, Generator, GeneratorConfig
 from ..utils.checkpoint import (
     build_bisenet_from_state_dict, build_discriminator_from_state_dict,
-    build_generator_from_state_dict, build_lpips_from_state_dict, load_optimizer_state,
-    load_training_checkpoint, optimizer_state_to_jax, save_checkpoint)
+    build_generator_from_state_dict, build_inception_from_state_dict, build_lpips_from_state_dict,
+    load_optimizer_state, load_training_checkpoint, optimizer_state_to_jax, save_checkpoint)
 from ..utils.logging import ExperimentLogger, save_image_grid
 from ..utils.runtime import resolve_device
 from .config import TrainConfig
@@ -54,12 +57,14 @@ class Trainer:
     ``kd_lpips_lambda > 0``; ``parse_params`` (a ``BiSeNet`` or its state
     dict) when there is a teacher and ``content_aware_KD``, as in the JAX
     Trainer. Both are moved to ``device`` once and frozen.
+
+    ``inception_params`` (an ``InceptionV3`` or its state dict) with
+    ``real_stats`` ({'mean', 'cov'} or a pickle path) turn on the FID of
+    ``g_ema`` every ``model_save_freq`` iterations in ``run``.
     """
 
     def __init__(self, cfg: TrainConfig, *, device="cuda", exp_root=".", lpips_params=None,
                  parse_params=None, inception_params=None, real_stats=None):
-        if inception_params is not None or real_stats is not None:
-            raise NotImplementedError("in-loop FID is not ported yet")
         self.cfg = cfg
         self.device = device = resolve_device(device)
         self.exp_root = exp_root
@@ -102,6 +107,12 @@ class Trainer:
             self.lpips = _frozen(lpips_params, build_lpips_from_state_dict, device)
         if cfg.teacher and cfg.content_aware_KD and parse_params is not None:
             self.parser = _frozen(parse_params, build_bisenet_from_state_dict, device)
+
+        # in-loop FID (the JAX loop.py:528-559): both or neither
+        self.inception = self.real_stats = None
+        if inception_params is not None and real_stats is not None:
+            self.inception = _frozen(inception_params, build_inception_from_state_dict, device)
+            self.real_stats = real_stats
 
         self.g_opt, self.d_opt = make_optimizers(self.g, self.d, cfg)
         self.start_iter = 0
@@ -169,11 +180,32 @@ class Trainer:
                      "net_shape": list(self.g.config.net_shape)})
         return path
 
+    def start_fid(self, logger, iter_idx: int):
+        """FID of ``g_ema`` at ``iter_idx``: an ``OverlappedFIDEval`` that
+        ``run`` advances every iteration (``fid_overlap``), or a synchronous
+        pass logged at once (None returned). Its draws come from a generator
+        seeded from the loop's own."""
+        cfg = self.cfg
+        seed = int(torch.randint(0, 2 ** 62, (), generator=self.gen, device=self.device))
+        gen = torch.Generator(self.device).manual_seed(seed)
+        if cfg.fid_overlap:
+            return OverlappedFIDEval(self.g_ema, self.inception, self.real_stats,
+                                     batch_size=cfg.fid_batch, n_sample=cfg.fid_n_sample,
+                                     generator=gen)
+        logger.log_fid(get_model_fid_score(self.g_ema, self.inception, self.real_stats,
+                                           batch_size=cfg.fid_batch, num_sample=cfg.fid_n_sample,
+                                           generator=gen), iter_idx)
+        return None
+
     def run(self, *, max_iters: int | None = None, logger=None, data_seed=None):
         """The loop from ``start_iter``: one log line per iteration, a sample
-        grid of ``g_ema`` every ``val_sample_freq`` and a checkpoint every
+        grid of ``g_ema`` every ``val_sample_freq`` and the FID (with
+        Inception and real statistics) and a checkpoint every
         ``model_save_freq`` iterations. A step's metrics are fetched after the
-        next step is queued, so the fetch does not stall the card."""
+        next step is queued, so the fetch does not stall the card. An
+        overlapped FID advances ``fid_batches_per_iter`` batches after each
+        step and is drained before ``run`` returns; its score is logged with
+        the iteration it started at."""
         cfg = self.cfg
         logger = logger or ExperimentLogger(self.exp_root)
         dataset = open_dataset(cfg.data_folder, cfg.generated_img_size)
@@ -193,6 +225,19 @@ class Trainer:
             last["mean_path_avg"] = vals[-1]
             logger.log_iteration(it, time.time() - t0, last)
 
+        fid = {"eval": None, "iter": None}
+
+        def fid_tick(n_batches):
+            if fid["eval"] is None:
+                return
+            score = fid["eval"].advance(n_batches)
+            if score is not None:
+                logger.log_fid(score, fid["iter"])
+                logger.write(f"FID eval overlapped with training: wall "
+                             f"{time.time() - fid['eval'].started:.1f}s, host-side cost "
+                             f"{fid['eval'].extra_seconds:.1f}s\n")
+                fid["eval"] = None
+
         pending = None
         for it in range(self.start_iter, end):
             t0 = time.time()
@@ -200,6 +245,7 @@ class Trainer:
             keys = sorted(metrics)
             packed = torch.stack([metrics[k].float() for k in keys]
                                  + [mean_path_length.float()])
+            fid_tick(cfg.fid_batches_per_iter)
             if pending is not None:
                 flush(pending)
             pending = (it, t0, keys, packed)
@@ -213,7 +259,11 @@ class Trainer:
                         logger.sample_dir, f"{str(it).zfill(6)}.png"),
                         nrow=int(cfg.val_sample_num ** 0.5))
                 if it % cfg.model_save_freq == 0 and it > 0:
+                    if self.inception is not None:
+                        fid_tick(10 ** 9)  # finish a straggler first
+                        fid["eval"], fid["iter"] = self.start_fid(logger, it), it
                     self.save(logger, it)
+        fid_tick(10 ** 9)
         if pending is not None:
             flush(pending)
         return logger

@@ -4,6 +4,7 @@ from .checkpoint import (
     build_bisenet_from_state_dict,
     build_discriminator_from_state_dict,
     build_generator_from_state_dict,
+    build_inception_from_state_dict,
     build_lpips_from_state_dict,
     load_checkpoint,
     load_generator,
@@ -23,6 +24,7 @@ __all__ = [
     "build_bisenet_from_state_dict",
     "build_discriminator_from_state_dict",
     "build_generator_from_state_dict",
+    "build_inception_from_state_dict",
     "build_lpips_from_state_dict",
     "load_checkpoint",
     "load_generator",

@@ -189,6 +189,19 @@ def build_lpips_from_state_dict(state_dict, *, device="cuda"):
     return net
 
 
+def build_inception_from_state_dict(state_dict, *, device="cuda"):
+    """An ``InceptionV3`` holding ``state_dict`` (the JAX ``inception_init``
+    tree, flat or nested, or the pytorch-fid keys without ``fc.*``,
+    ``AuxLogits.*`` and ``num_batches_tracked``), its width scale read off
+    Conv2d_2b's 64 channels."""
+    from ..models.inception import InceptionV3
+
+    sd = state_dict_from_jax(state_dict)
+    net = InceptionV3(sd["Conv2d_2b_3x3.conv.weight"].shape[0] / 64, device=device)
+    net.load_state_dict(sd, strict=True)
+    return net
+
+
 def build_bisenet_from_state_dict(state_dict, *, device="cuda"):
     """A ``BiSeNet`` holding ``state_dict`` (the JAX ``bisenet_init`` tree or
     a reference one without ``num_batches_tracked``), its widths and class

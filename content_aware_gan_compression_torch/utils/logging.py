@@ -95,6 +95,16 @@ class ExperimentLogger:
         rec.update({k: float(v) for k, v in m.items()})
         self.log_event(rec)
 
+    def log_fid(self, fid: float, iter_idx: int | None = None):
+        """The reference's text line, and a JSON record that also names the
+        iteration whose ``g_ema`` was scored (an overlapped eval ends many
+        iterations after its snapshot)."""
+        self.write(f"\nEvaluated FID: {fid}\n\n")
+        rec = {"fid": float(fid)}
+        if iter_idx is not None:
+            rec["iter"] = int(iter_idx)
+        self.log_event(rec)
+
     def log_event(self, record: dict):
         """One structured JSONL record with no text twin."""
         self._jsonl.write(json.dumps(record) + "\n")

@@ -23,6 +23,7 @@ from content_aware_gan_compression_tpu.ops.pallas import (
 from content_aware_gan_compression_tpu.ops.pallas.fused_act_pallas import _masked_scale
 from content_aware_gan_compression_torch import ops
 from content_aware_gan_compression_torch.ops import cuda as kernels
+from torch_train_util import torch_threads  # noqa: F401
 
 K4 = np.outer([1, 3, 3, 1], [1, 3, 3, 1]).astype(np.float32) / 64
 

@@ -19,6 +19,7 @@ from content_aware_gan_compression_torch.models import (
 from content_aware_gan_compression_torch.utils import (
     build_bisenet_from_state_dict, pytree_to_torch_state_dict)
 from torch_train_util import bisenet_tree
+from torch_train_util import torch_threads  # noqa: F401
 
 TOL = 1e-4
 

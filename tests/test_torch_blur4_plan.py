@@ -13,6 +13,7 @@ from content_aware_gan_compression_torch.models import (
 from content_aware_gan_compression_torch.ops.cuda import blur4_plain, lane_width, launch_plan
 from content_aware_gan_compression_torch.ops.cuda.blur4 import (
     MAX_BLOCK_THREADS, MAX_GRID_YZ, MAX_SMEM_BYTES, STRIP_ROWS)
+from torch_train_util import torch_threads  # noqa: F401
 
 
 def _path_cases():

@@ -17,6 +17,7 @@ from content_aware_gan_compression_torch.utils import (
     pytree_to_torch_state_dict, save_checkpoint, state_dict_from_jax,
     torch_state_dict_to_pytree,
 )
+from torch_train_util import torch_threads  # noqa: F401
 
 SIZE, STYLE_DIM, N_MLP = 16, 8, 1
 NET_SHAPE = (12, 12, 10, 8, 8, 6)

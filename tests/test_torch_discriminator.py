@@ -21,6 +21,7 @@ from content_aware_gan_compression_torch.models import (
 from content_aware_gan_compression_torch.models.stylegan2 import minibatch_stddev
 from content_aware_gan_compression_torch.utils import (
     build_discriminator_from_state_dict, state_dict_from_jax)
+from torch_train_util import torch_threads  # noqa: F401
 
 SIZE = 16
 

@@ -26,6 +26,7 @@ from content_aware_gan_compression_torch.models import LPIPS, BiSeNet, bisenet_w
 from torch_train_util import (
     D_CHANNEL_MAX, N_MLP, STYLE, aux_trees, coi_share, jax_params, reals, train_kw,
     trainer_draws, write_checkpoints)
+from torch_train_util import torch_threads  # noqa: F401
 
 SIZE = 32
 N_ITERS = 3

@@ -21,6 +21,7 @@ from content_aware_gan_compression_tpu.utils.logging import (
     save_image_grid as jax_save_image_grid)
 from content_aware_gan_compression_torch.generate import sample_images
 from content_aware_gan_compression_torch.utils import load_generator, save_image_grid
+from torch_train_util import torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "content_aware_gan_compression_torch"

@@ -18,6 +18,7 @@ from content_aware_gan_compression_torch.models import (
     Generator, GeneratorConfig, default_net_shape, net_shape_from_params,
 )
 from content_aware_gan_compression_torch.utils import state_dict_from_jax
+from torch_train_util import torch_threads  # noqa: F401
 
 ATOL = 1e-4
 CONFIGS = {

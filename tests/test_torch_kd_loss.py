@@ -38,6 +38,7 @@ from content_aware_gan_compression_torch.train import kd_loss
 from content_aware_gan_compression_torch.utils import (
     build_bisenet_from_state_dict, build_lpips_from_state_dict)
 from torch_train_util import PARSER_SEED, bisenet_tree
+from torch_train_util import torch_threads  # noqa: F401
 
 
 def _images(n, size, seed, nhwc=True):

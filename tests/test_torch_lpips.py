@@ -21,6 +21,7 @@ from content_aware_gan_compression_torch.models import (
     LPIPS, LPIPS_CHANNELS, VGG16_CONVS, import_lpips_lins, import_vgg16_features, load_lpips,
     vgg16_widths)
 from content_aware_gan_compression_torch.utils import build_lpips_from_state_dict
+from torch_train_util import torch_threads  # noqa: F401
 
 RTOL = 1e-5
 

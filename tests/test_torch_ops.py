@@ -16,6 +16,7 @@ from content_aware_gan_compression_tpu.ops.pallas import (
 from content_aware_gan_compression_torch import ops
 from content_aware_gan_compression_torch.ops import cuda as kernels
 from content_aware_gan_compression_torch.ops.cuda import build
+from torch_train_util import torch_threads  # noqa: F401
 
 
 @pytest.mark.parametrize(

@@ -21,6 +21,7 @@ from content_aware_gan_compression_torch.train.__main__ import (
     aux_nets_from_args, config_from_args, parse_args)
 from content_aware_gan_compression_torch.utils import build_bisenet_from_state_dict
 from torch_train_util import N_MLP, SIZE, STYLE, aux_trees, write_checkpoints
+from torch_train_util import torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 

@@ -42,6 +42,7 @@ from content_aware_gan_compression_torch.utils import (
 from torch_train_util import (
     D_CFG, G_CFG, N_MLP, SIZE, STYLE, T_CFG, aux_trees, coi_share, d_draws, g_draws,
     g_reg_draws, jax_params, reals, train_kw)
+from torch_train_util import torch_threads  # noqa: F401
 
 GRAD_RTOL = 1e-4
 

@@ -27,6 +27,7 @@ from content_aware_gan_compression_torch.data import infinite_loader, open_datas
 from content_aware_gan_compression_torch.utils import (
     ExperimentLogger, save_checkpoint, state_dict_from_jax)
 from torch_train_util import reals, train_kw, trainer_draws, write_checkpoints
+from torch_train_util import torch_threads  # noqa: F401
 
 N_ITERS = 5
 RTOL, ATOL = 1e-4, 1e-5
@@ -199,13 +200,16 @@ def test_logger_writes_the_jax_loggers_lines(tmp_path):
 
 
 def test_trainer_refuses_unported_terms():
-    """In-loop FID is not ported yet and raises; a CUDA trainer without a
-    card raises. (The aux nets of the KD objective are ported:
-    test_torch_full_kd_trainer.py.)"""
-    with pytest.raises(NotImplementedError, match="FID"):
-        train.Trainer(train.TrainConfig(), device="cpu", inception_params={})
-    with pytest.raises(NotImplementedError, match="FID"):
-        train.Trainer(train.TrainConfig(), device="cpu", real_stats="stats.npz")
+    """In-loop FID needs both Inception and real statistics, as in the JAX
+    Trainer: either alone turns it off (it is ported and driven in
+    test_torch_eval_cli.py, as the KD objective's aux nets are in
+    test_torch_full_kd_trainer.py); a CUDA trainer without a card raises."""
+    cfg = train.TrainConfig(generated_img_size=16, latent=16, n_mlp=1, channel_multiplier=1)
+    from torch_eval_util import inception_tree
+
+    for kw in ({"inception_params": inception_tree()}, {"real_stats": "stats.pkl"}):
+        trainer = train.Trainer(cfg, device="cpu", **kw)
+        assert trainer.inception is None and trainer.real_stats is None
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             train.Trainer(train.TrainConfig(generated_img_size=16, latent=16, n_mlp=1))

@@ -5,6 +5,7 @@ rebuilt from their keys so that both packages see the same draws."""
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 import torch
 from jax import random
 
@@ -15,6 +16,22 @@ from content_aware_gan_compression_tpu.models.bisenet import bisenet_init
 from content_aware_gan_compression_tpu.models.lpips import lpips_init
 from content_aware_gan_compression_tpu.train.steps import _mixing_latents
 from content_aware_gan_compression_tpu.utils import save_checkpoint as jax_save_checkpoint
+
+# torch's intra-op threads in the port's test files: the tier-1 run keeps 6
+# workers on 8 cores, and the JAX tests beside these need the cores more than
+# the port's tiny tensors do
+TEST_THREADS = 2
+
+
+@pytest.fixture(scope="module", autouse=True)
+def torch_threads():
+    """Cap torch's intra-op threads for a test module (imported into it, it
+    applies there), and restore the count after it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(TEST_THREADS)
+    yield
+    torch.set_num_threads(before)
+
 
 SIZE, STYLE, N_MLP, BATCH = 16, 16, 2, 4
 STUDENT_SHAPE = (16, 12, 12, 8, 8, 6)  # narrow and non-uniform, like a pruned student
@@ -56,11 +73,10 @@ def jax_params(g_cfg=G_CFG, t_cfg=T_CFG, d_cfg=D_CFG):
     return g, t, d
 
 
-def bisenet_tree(width_scale, seed=0):
-    """A ``bisenet_init`` tree as numpy, with random eval statistics and
-    affine terms in every batch norm, so that the folded scale and shift
-    are not the identity."""
-    tree = _jit_init(bisenet_init, seed, width_scale=width_scale)
+def randomize_batch_norms(tree, seed):
+    """Random eval statistics and affine terms in every batch norm of a
+    numpy tree, drawn from ``seed``, so that the folded scale and shift are
+    not the identity."""
     rng = np.random.RandomState(seed)
 
     def visit(node):
@@ -75,6 +91,11 @@ def bisenet_tree(width_scale, seed=0):
                 visit(child)
     visit(tree)
     return tree
+
+
+def bisenet_tree(width_scale, seed=0):
+    """A ``bisenet_init`` tree as numpy, batch norms randomized."""
+    return randomize_batch_norms(_jit_init(bisenet_init, seed, width_scale=width_scale), seed)
 
 
 # a width-0.25 parser whose parse of the tiny generators' images is not one
