@@ -6,12 +6,13 @@
 Phases, each of which exits non-zero on failure:
   1. print the card (nvidia-smi) and build the CUDA kernels from csrc/;
   2. hold each kernel against its plain PyTorch version on the card, at every
-     shape the 256px generator gives it at batch 16 and at the evaluation's
-     batch of 64, and at ragged shapes (blur4 also at
-     every up-blur of the 11x student at batch 16 and path batch 8, and on a
-     view that is not 16-byte aligned); the same for masked_scale (the
+     shape the 256px generator gives it at batch 16, at the evaluation's
+     batch of 64 and at pruning's scoring batch of 10, and at ragged shapes
+     (blur4 also at every up-blur of the 11x student at batch 16, path batch
+     8 and batch 10, at the scoring backward's blurs of the gradient, and on
+     a view that is not 16-byte aligned); the same for masked_scale (the
      epilogue's backward) at every epilogue shape of the 11x student at
-     batch 16 and path batch 8;
+     batch 16 and path batch 8 and of the full-width generator at batch 10;
   3. drive the generate path (mean latent, truncation 0.5, batch 16) of the
      full-width 256px generator, weights drawn from seed 0, and check that it
      launched blur4 6 times, all with float4 lanes, and the fused epilogue
@@ -20,10 +21,10 @@ Phases, each of which exits non-zero on failure:
   4. run ``python -m content_aware_gan_compression_torch.generate`` on a
      seeded .npz checkpoint and check the PNG grid;
   5. hold the first and second derivatives through each autograd Function on
-     the card (blur4 at the student's up-blurs at batch 16 and 8, the
-     discriminator's shapes and pads and a misaligned view, the epilogue at
-     the student's shapes) against the same function built from the plain
-     versions;
+     the card (blur4 at the student's up-blurs at batch 16 and 8 and the
+     full-width generator's at batch 10, the discriminator's shapes and pads
+     and a misaligned view, the epilogue at the student's shapes) against the
+     same function built from the plain versions;
   6. drive the retraining path: the port's Trainer with the 11x student, the
      full-width teacher and D at 256px, batch 16, iterations 0-4 (R1 at 0,
      path length at 0 and 4), with the KD-L1 objective and then with the
@@ -71,7 +72,25 @@ Phases, each of which exits non-zero on failure:
  14. time the feature stream (samples/s; generator and Inception ms per
      batch), Inception alone (TFLOP/s from its convolutions' shapes) and PPL
      (pairs/s), with TF32 off and under the defaults, and peak memory of a
-     feature batch at fid_batch 32 and at 64.
+     feature batch at fid_batch 32 and at 64;
+ 15. drive content-aware pruning at 256px at prune.py's defaults (400
+     samples in batches of 10, noise_prob 0.05) on the full-width generator
+     with a full-width seeded BiSeNet (the first seed whose parse is mixed):
+     per batch 6 blur4 launches forward and 6 backward, all float4, 13
+     epilogue and 13 masked_scale (prune_launches); finite scores >= 0; the
+     0.7 remove list keeps STUDENT_SHAPE; the surgery loads into Generator
+     and one batch of the pruned generator runs (its blur4 lanes logged);
+     the scoring's time, the generator's forward + backward and the parse
+     per batch, and where a batch's device time goes, with TF32 off and
+     under the defaults;
+ 16. the baseline metrics over 400 samples: ASV, l1-out, l1-style and Random
+     (one of each family), aligned with net_shape, finite, timed;
+ 17. the content-aware scores of one batch at 64px on the card and on the
+     CPU, each against float64 (cuDNN deterministic, TF32 off);
+ 18. ``python -m content_aware_gan_compression_torch.prune`` on a seeded
+     .npz (content-aware with a seeded BiSeNet file, and l1-out; 40 samples),
+     its .npz and .pth, then the train CLI for 2 iterations on the pruned
+     checkpoint with the full-width one as the teacher.
 The last lines are a {"kernels": [...]} JSON line, the card's name and power
 limit, and {"ok": true, "device": {...}}. Needs a CUDA card; without one it
 exits non-zero and prints no result.
@@ -106,6 +125,13 @@ FID_SAMPLES = 2048
 PPL_BATCH = 32
 PPL_SAMPLES = 512
 INCEPTION_SEED = 0
+# pruning: prune.py's defaults (400 samples in batches of 10, noise_prob
+# 0.05, remove_ratio 0.7); the CLI runs on fewer samples, for time
+PRUNE_SAMPLES = 400
+PRUNE_BATCH = 10
+PRUNE_NOISE = 0.05
+PRUNE_RATIO = 0.7
+PRUNE_CLI_SAMPLES = 40
 
 
 def fail(msg):
@@ -194,6 +220,31 @@ def train_phase_launches(log_size):
                   "masked_scale": 3 * e},
         "ema": zero,
     }
+
+
+def prune_launches(log_size, n_batch):
+    """Kernel launches of content-aware scoring at a resolution of
+    2**log_size over ``n_batch`` batches: per batch one generator forward
+    (k = log_size - 2 up-blurs, e = 2*log_size - 3 epilogues) and its
+    backward to the conv weights (each up-blur's and each epilogue's
+    backward); the parse launches none. The full-width widths are multiples
+    of 4, so every blur, forward and backward, takes float4 lanes."""
+    k, e = log_size - 2, 2 * log_size - 3
+    return {"blur4": k * n_batch, "blur4_backward": k * n_batch, "blur4_vector": 2 * k * n_batch,
+            "fused_noise_bias_lrelu": e * n_batch, "masked_scale": e * n_batch}
+
+
+def randomize_epilogues(g, seed):
+    """Noise weights and activation biases (zero at init) drawn from
+    ``seed``, so that the epilogue's noise and bias terms count."""
+    from content_aware_gan_compression_torch.models import stylegan2
+
+    wrng = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in g.modules():
+            if isinstance(m, stylegan2.StyledConv):
+                m.noise.weight.copy_(torch.randn(1, generator=wrng))
+                m.activate.bias.copy_(0.2 * torch.randn(m.activate.bias.shape, generator=wrng))
 
 
 def to_device(obj, dev):
@@ -315,19 +366,24 @@ class FixedParse(torch.nn.Module):
         return (logits if data_format == "NHWC" else logits.permute(0, 3, 1, 2),)
 
 
+def bisenet_file_state(parser):
+    """``parser``'s state dict in the 79999_iter.pth schema
+    (``num_batches_tracked`` in every batch norm), on the CPU."""
+    sd = {k: v.cpu() for k, v in parser.state_dict().items()}
+    for k in [k for k in sd if k.endswith("running_var")]:
+        sd[k[:-len("running_var")] + "num_batches_tracked"] = torch.tensor(79999)
+    return sd
+
+
 def write_aux_files(work, lpips, parser=None):
     """``lpips`` and ``parser`` in the files the train CLI reads:
     torchvision's VGG16 (``features.N.*``), the reference's LPIPS heads
-    (``lin{k}.model.1.weight``) and, with a parser, 79999_iter.pth
-    (``num_batches_tracked`` in every batch norm)."""
+    (``lin{k}.model.1.weight``) and, with a parser, 79999_iter.pth."""
     files = {"vgg16.pth": {f"features.{k}": v.cpu() for k, v in lpips.vgg.state_dict().items()},
              "lpips_lins.pth": {f"lin{k}.model.1.weight": lin.weight.detach().cpu()
                                 for k, lin in enumerate(lpips.lins)}}
     if parser is not None:
-        bisenet = {k: v.cpu() for k, v in parser.state_dict().items()}
-        for k in [k for k in bisenet if k.endswith("running_var")]:
-            bisenet[k[:-len("running_var")] + "num_batches_tracked"] = torch.tensor(79999)
-        files["79999_iter.pth"] = bisenet
+        files["79999_iter.pth"] = bisenet_file_state(parser)
     paths = [os.path.join(work, name) for name in files]
     for path, sd in zip(paths, files.values()):
         torch.save(sd, path)
@@ -686,6 +742,272 @@ def eval_phases(g, dev, card, work):
     return {"fid": fid_launches, "ppl": ppl_launches}
 
 
+def prune_vs_float64(dev):
+    """The content-aware scores of one batch at 64px, batch 4, full width,
+    with explicit draws, on the card and on the CPU, each held against the
+    CPU in float64 (as phase 7: the card may be no further from float64
+    than twice the CPU's fp32 distance, plus 1e-4). Every run masks with the
+    float64 run's class map from a width-0.25 seeded BiSeNet. Runs under the
+    caller's cuDNN flags (deterministic, TF32 off). Returns the distances."""
+    from content_aware_gan_compression_torch.models import (
+        Generator, GeneratorConfig, make_parse_fn)
+    from content_aware_gan_compression_torch.pruning import (
+        batch_img_parsing, draw_scoring_batch, get_content_aware_pruning_score)
+
+    g_cpu = Generator(GeneratorConfig(size=64), device="cpu",
+                      generator=torch.Generator().manual_seed(0))
+    randomize_epilogues(g_cpu, 1)
+    runs = {"cpu": g_cpu, "card": copy.deepcopy(g_cpu).to(dev),
+            "f64": copy.deepcopy(g_cpu).double()}
+    z, noise, sp, bern = draw_scoring_batch(g_cpu, 4, PRUNE_NOISE,
+                                            torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        img64 = runs["f64"]([z.double()], noise=[n.double() for n in noise],
+                            output_format="NHWC")
+    parser64, parser_seed, share = pick_parser(img64, width_scale=0.25)
+    class_map = batch_img_parsing(img64, make_parse_fn(parser64, "NHWC"), "NHWC")
+    scores = {}
+    for key, g_run in runs.items():
+        dtype = torch.float64 if key == "f64" else torch.float32
+        d = g_run.device
+        draws = [(z.to(d, dtype), [n.to(d, dtype) for n in noise], sp.to(d, dtype), bern.to(d))]
+        parse_fn = make_parse_fn(FixedParse(class_map).to(d), "NHWC")
+        scores[key] = get_content_aware_pruning_score(
+            g_run, parse_fn=parse_fn, n_sample=4, batch_size=4, noise_prob=PRUNE_NOISE,
+            draws=draws)[0]
+
+    def distance(key):
+        return [float(np.abs(a - b).max() / np.abs(b).max())
+                for a, b in zip(scores[key], scores["f64"])]
+    card, cpu = distance("card"), distance("cpu")
+    out = {"card_vs_float64": max(card), "cpu_vs_float64": max(cpu),
+           "card_per_layer": card, "cpu_per_layer": cpu, "parser_seed": parser_seed,
+           "coi_share": share}
+    if not max(card) <= 2 * max(cpu) + 1e-4:
+        fail(f"content-aware scores on the card vs float64 on the CPU: {out}")
+    return out
+
+
+def prune_phases(g, dev, card, work):
+    """Content-aware pruning at 256px on the full-width generator ``g``:
+    the scoring path's launches per batch, the 0.7 remove list, surgery and
+    one batch of the pruned generator; the baseline metrics; the scores on
+    the card and on the CPU against float64; the prune CLI and the train CLI
+    on its output; and the times. Returns the kernels line's launch counts
+    of the scoring path."""
+    from content_aware_gan_compression_torch.bench_blur4 import time_ms
+    from content_aware_gan_compression_torch.models import (
+        Discriminator, DiscriminatorConfig, make_parse_fn, net_shape_from_params)
+    from content_aware_gan_compression_torch.ops.cuda import counts, lane_width, reset_counts
+    from content_aware_gan_compression_torch.pruning import (
+        batch_img_parsing, coi_mask_from_parsing, draw_scoring_batch, generate_prune_mask_list,
+        get_content_aware_pruning_score, get_network_score_list, get_uniform_remove_list,
+        mask_the_generator)
+    from content_aware_gan_compression_torch.pruning.content_aware import _image_grad_scores
+    from content_aware_gan_compression_torch.utils import (
+        build_generator_from_state_dict, load_checkpoint, pytree_to_torch_state_dict,
+        save_checkpoint)
+
+    torch.backends.cudnn.allow_tf32 = False
+    net_shape = g.config.net_shape
+    n_batch = PRUNE_SAMPLES // PRUNE_BATCH
+
+    # -- 15. prune_path: content-aware scoring at prune.py's defaults ---------
+    # the parser: the first seed whose parse of a batch of g's images is mixed
+    with torch.no_grad():
+        pick = torch.Generator(dev).manual_seed(8)
+        img = g([torch.randn(PRUNE_BATCH, g.config.style_dim, generator=pick, device=dev)],
+                noise=g.make_noise(PRUNE_BATCH, pick), output_format="NHWC")
+        parser, parser_seed, pick_share = pick_parser(img)
+    parse_fn = make_parse_fn(parser, "NHWC")
+
+    def score(tf32):
+        torch.backends.cudnn.allow_tf32 = tf32
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = get_content_aware_pruning_score(
+            g, parse_fn=parse_fn, n_sample=PRUNE_SAMPLES, batch_size=PRUNE_BATCH,
+            noise_prob=PRUNE_NOISE, generator=torch.Generator(dev).manual_seed(0))
+        seconds = time.perf_counter() - t0  # ends in the last batch's copy to the host
+        torch.backends.cudnn.allow_tf32 = False
+        return out, seconds, counts()
+
+    batch_scores, score_s, c = score(False)
+    want = prune_launches(int(np.log2(SIZE)), n_batch)
+    launches = {k: c[k] for k in want}
+    finite = all(np.isfinite(s).all() and (s >= 0).all() for b in batch_scores for s in b)
+    total = [sum(b[i] for b in batch_scores) for i in range(len(net_shape))]
+    masks = generate_prune_mask_list(total, net_shape, get_uniform_remove_list(net_shape,
+                                                                               PRUNE_RATIO))
+    kept = tuple(int(m.sum()) for m in masks)
+    pruned = mask_the_generator(g.state_dict(), masks)
+    g_small = build_generator_from_state_dict(pruned, SIZE, device=dev)
+    reset_counts()
+    with torch.inference_mode():
+        gen = torch.Generator(dev).manual_seed(1)
+        small_img = g_small([torch.randn(PRUNE_BATCH, g.config.style_dim, generator=gen,
+                                         device=dev)], generator=gen)
+        torch.cuda.synchronize()
+    small_counts = counts()
+    # the content mask's share over the first scoring batch's images
+    z, noise, sp, bern = draw_scoring_batch(g, PRUNE_BATCH, PRUNE_NOISE,
+                                            torch.Generator(dev).manual_seed(0))
+    with torch.no_grad():
+        img = g([z], noise=noise, output_format="NHWC")
+        coi = coi_mask_from_parsing(batch_img_parsing(img, parse_fn, "NHWC")).float().mean().item()
+
+    def forward_backward():
+        _image_grad_scores(g, g([z], noise=noise, output_format="NHWC"), sp.float(), bern.float())
+
+    times = {}
+    for label, tf32 in (("tf32_off", False), ("pytorch_defaults", True)):
+        torch.backends.cudnn.allow_tf32 = tf32
+        times[label] = {"generator_forward_backward_ms": time_ms(forward_backward, iters=10),
+                        "parse_ms": time_ms(lambda: batch_img_parsing(img, parse_fn, "NHWC"),
+                                            iters=10)}
+    _, score_defaults_s, _ = score(True)
+    # where a scoring batch's device time goes (parse, forward, backward),
+    # profiled after the timings, so that the profiler stays out of them:
+    # under the defaults the batch is host-bound, and its times vary from
+    # run to run (forward and backward 28.6-44.6 ms on an H100)
+    for label, tf32 in (("tf32_off", False), ("pytorch_defaults", True)):
+        torch.backends.cudnn.allow_tf32 = tf32
+        times[label]["device_time"] = profile_forward(
+            lambda i: get_content_aware_pruning_score(
+                g, parse_fn=parse_fn, n_sample=PRUNE_BATCH, batch_size=PRUNE_BATCH,
+                noise_prob=PRUNE_NOISE, generator=torch.Generator(dev).manual_seed(i)),
+            iters=5, inference=False)
+    torch.backends.cudnn.allow_tf32 = False
+    times["tf32_off"]["scoring_s"] = score_s
+    times["pytorch_defaults"]["scoring_s"] = score_defaults_s
+    for label in times:
+        times[label]["samples_per_s"] = PRUNE_SAMPLES / times[label]["scoring_s"]
+    detail("prune_path", size=SIZE, samples=PRUNE_SAMPLES, batch=PRUNE_BATCH,
+           noise_prob=PRUNE_NOISE, batches=n_batch, launches=launches,
+           launches_per_batch={k: v / n_batch for k, v in launches.items()},
+           grad_copies=c["blur4_grad_copies"] + c["masked_scale_grad_copies"],
+           parser=f"BiSeNet, full width, seed {parser_seed} (mask keeps {pick_share:.4f} of "
+                  "the picking batch)", coi_share_first_batch=coi, scores_finite=finite,
+           score_ranges=[[float(s.min()), float(s.max())] for s in total],
+           kept=list(kept), pruned_launches=small_counts,
+           pruned_blur_lanes=[lane_width(shape[3]) for shape in student_blur_shapes(PRUNE_BATCH,
+                                                                                    kept)],
+           pruned_images=list(small_img.shape), **times, card=card,
+           note=f"scoring_s: host clock over the {n_batch} batches, ending in the scores' copy "
+                "to the host; forward_backward and parse: median ms of 10 calls, CUDA events; "
+                "device_time: the profiler over 5 scoring batches")
+    if launches != want:
+        fail(f"prune_path launched {launches}, want {want}")
+    if not finite or any(s.shape != (w,) for s, w in zip(total, net_shape)):
+        fail("prune_path: a score is not finite, negative or of the wrong width")
+    if kept != STUDENT_SHAPE or net_shape_from_params(pruned) != STUDENT_SHAPE:
+        fail(f"prune_path kept {kept}, want {STUDENT_SHAPE}")
+    one = prune_launches(int(np.log2(SIZE)), 1)
+    if (small_counts["blur4"] != one["blur4"] or small_counts["blur4_vector"] != 0
+            or small_counts["fused_noise_bias_lrelu"] != one["fused_noise_bias_lrelu"]
+            or not torch.isfinite(small_img).all()):
+        fail(f"the pruned generator: launches {small_counts}, finite "
+             f"{bool(torch.isfinite(small_img).all())}")
+    if not 0.0 < coi < 1.0:
+        fail(f"prune_path: the mask keeps {coi} of the first batch's pixels")
+    del g_small, small_img, img
+
+    # -- 16. prune_metrics: one metric of each family over 400 samples --------
+    z400 = torch.randn(PRUNE_SAMPLES, g.config.style_dim, generator=torch.Generator(dev)
+                       .manual_seed(3), device=dev)
+    metrics = {}
+    for metric in ("ASV", "l1-out", "l1-style", "Random"):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scores = get_network_score_list(g, z400, metric, batch_size=PRUNE_BATCH,
+                                        generator=torch.Generator(dev).manual_seed(4))
+        metrics[metric] = {"seconds": time.perf_counter() - t0,
+                           "range": [float(min(s.min() for s in scores)),
+                                     float(max(s.max() for s in scores))],
+                           "launches": {k: counts()[k] for k in want}}
+        if ([s.shape for s in scores] != [(w,) for w in net_shape]
+                or not all(np.isfinite(s).all() for s in scores)):
+            fail(f"prune_metrics {metric}: shapes {[s.shape for s in scores]} or not finite")
+        if metric == "ASV" and not (scores[0] == 0).all():
+            fail(f"prune_metrics ASV of the constant input is {scores[0].max()}, want 0")
+    detail("prune_metrics", size=SIZE, samples=PRUNE_SAMPLES, batch=PRUNE_BATCH, tf32=False,
+           **metrics, card=card, note="seconds: host clock, ending in the scores' copy to the "
+           f"host; ASV: {n_batch} feature-map forwards, no backward")
+
+    # -- 17. prune_cuda_vs_cpu: 64px, batch 4, against float64 -----------------
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                     allow_tf32=False):
+        small = prune_vs_float64(dev)
+    detail("prune_cuda_vs_cpu", size=64, batch=4, tf32=False, cudnn_deterministic=True,
+           **small, measure="per layer, largest |a - float64| / max|float64| of the scores",
+           tolerance="card <= 2 * cpu + 1e-4")
+
+    # -- 18. prune_cli: the prune CLI, then the train CLI on its output --------
+    os.makedirs(work, exist_ok=True)
+    ckpt = os.path.join(work, "g256_seed0.npz")
+    d_sd = Discriminator(DiscriminatorConfig(size=SIZE), device="cpu",
+                         generator=torch.Generator().manual_seed(3)).state_dict()
+    save_checkpoint(ckpt, {"g_ema": g.state_dict(), "d": d_sd}, metadata={"size": SIZE})
+    parser_file = os.path.join(work, "79999_iter.pth")
+    torch.save(bisenet_file_state(parser), parser_file)
+    cli = {}
+    for metric in ("content-aware", "l1-out"):
+        out_dir = os.path.join(work, f"pruned_{metric}")
+        t0 = time.time()
+        proc = subprocess.run([
+            sys.executable, "-m", "content_aware_gan_compression_torch.prune", "--ckpt", ckpt,
+            "--generated_img_size", str(SIZE), "--parsing_ckpt", parser_file, "--n_sample",
+            str(PRUNE_CLI_SAMPLES), "--metric", metric, "--out_dir", out_dir], cwd=REPO,
+            capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            fail(f"prune CLI ({metric}) rc {proc.returncode}: {proc.stderr[-3000:]}")
+        (npz,) = [os.path.join(out_dir, f) for f in os.listdir(out_dir) if f.endswith(".npz")]
+        trees, meta = load_checkpoint(npz)
+        g_ema, g_tree = (pytree_to_torch_state_dict(trees[k]) for k in ("g_ema", "g"))
+        pth = torch.load(npz[:-4] + ".pth", weights_only=True)
+        cli[metric] = {"seconds": round(time.time() - t0, 3), "npz": npz, "metadata": meta,
+                       "trees": sorted(trees), "pth_trees": sorted(pth),
+                       "net_shape": list(net_shape_from_params(g_ema)),
+                       "g_equals_g_ema": all(torch.equal(g_tree[k], v) for k, v in g_ema.items()),
+                       "printed": [ln for ln in proc.stdout.splitlines() if "takes" in ln
+                                   or "WARNING" in ln]}
+        if (sorted(trees) != ["d", "g", "g_ema"] or sorted(pth) != ["d", "g", "g_ema"]
+                or tuple(cli[metric]["net_shape"]) != STUDENT_SHAPE
+                or not cli[metric]["g_equals_g_ema"] or meta["metric"] != metric
+                or not any("takes" in ln for ln in cli[metric]["printed"])
+                or any("WARNING" in ln for ln in cli[metric]["printed"])):
+            fail(f"prune CLI ({metric}): {cli[metric]}")
+    cache = os.path.join(work, "ffhq256_seeded.npy")
+    np.save(cache, np.random.RandomState(5).randint(0, 256, (32, SIZE, SIZE, 3), dtype=np.uint8))
+    root = os.path.join(work, "cli_retrain")
+    t0 = time.time()
+    proc = subprocess.run([
+        sys.executable, "-m", "content_aware_gan_compression_torch.train", "--path", cache,
+        "--size", str(SIZE), "--ckpt", cli["content-aware"]["npz"], "--teacher_ckpt", ckpt,
+        "--batch_size", str(BATCH), "--iter", "2", "--n_sample", "4", "--val_sample_freq", "100",
+        "--model_save_freq", "100", "--exp_root", root], cwd=REPO, capture_output=True,
+        text=True, timeout=600)
+    if proc.returncode != 0:
+        fail(f"train CLI on the pruned checkpoint rc {proc.returncode}: {proc.stderr[-3000:]}")
+    (exp,) = [os.path.join(root, d) for d in os.listdir(root) if d.startswith("Exp_")]
+    with open(os.path.join(exp, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    cli["retrain"] = {"seconds": round(time.time() - t0, 3), "iters": [r["iter"] for r in recs],
+                      "finite": all(np.isfinite(v) for r in recs for v in r.values())}
+    detail("prune_cli", **{k: {kk: vv for kk, vv in v.items() if kk != "npz"}
+                           for k, v in cli.items()},
+           cut=f"{PRUNE_CLI_SAMPLES} samples of prune.py's 400, for time",
+           retrain_setup="the train CLI: the pruned checkpoint as --ckpt, the full-width one "
+                         "as --teacher_ckpt, KD-L1 (no aux files), 2 iterations")
+    if cli["retrain"]["iters"] != [0, 1] or not cli["retrain"]["finite"]:
+        fail(f"train CLI on the pruned checkpoint: {cli['retrain']}")
+    shutil.rmtree(work)
+    del parser
+    return launches
+
+
 def train_vs_float64(work, dev, objectives=("kd_l1", "full_kd")):
     """One iteration at 64px, batch 4, TF32 off, on the card and on the CPU,
     each held against the CPU in float64, per phase; fails on a phase where
@@ -826,9 +1148,15 @@ def main():
     blur_shapes, fused_shapes = generator_layer_shapes()
     # the evaluation path's shapes: a FID batch of 64, a PPL batch of 32 pairs
     eval_blur_shapes, eval_fused_shapes = generator_layer_shapes(FID_BATCH)
+    # the prune path's: scoring batches of 10 at full width (the up-blurs,
+    # and their backward, the blur of the gradient with pads (2, 2)), and the
+    # pruned generator at batch 10 (C = 154, 77, 39: scalar lanes)
+    prune_blur_shapes, prune_fused_shapes = generator_layer_shapes(PRUNE_BATCH)
     # (shape, pad, gain, misaligned view)
     blur_cases = [(s, (1, 1), 4.0, False) for s in blur_shapes + student_blur_shapes(BATCH)
-                  + student_blur_shapes(PATH_BATCH) + eval_blur_shapes] + [
+                  + student_blur_shapes(PATH_BATCH) + eval_blur_shapes + prune_blur_shapes
+                  + student_blur_shapes(PRUNE_BATCH)] + [
+        ((b, h - 1, w - 1, c), (2, 2), 4.0, False) for b, h, w, c in prune_blur_shapes] + [
         ((3, 13, 9, 3), (2, 1), 1.0, False), ((2, 17, 11, 12), (2, 2), 4.0, False),
         ((2, 10, 15, 130), (1, 1), 1.0, False), ((1, 7, 7, 130), (2, 1), 4.0, False),
         ((2, 9, 8, 12), (1, 1), 4.0, False), ((3, 11, 13, 3), (2, 2), 1.0, False),
@@ -855,7 +1183,8 @@ def main():
         fail(f"blur4 launched {blur_counts}, want {len(blur_cases)} with {want_vector} "
              "of them float4")
 
-    fused_cases = [(s, s[0]) for s in fused_shapes + eval_fused_shapes] + [
+    fused_cases = [(s, s[0]) for s in fused_shapes + eval_fused_shapes + prune_fused_shapes
+                   + student_epilogue_shapes(PRUNE_BATCH)] + [
         ((2, 5, 7, 3), 2), ((2, 6, 6, 130), 1), ((16, 8, 8, 512), 1)]
     fused_err = 0.0
     for shape, noise_batch in fused_cases:
@@ -873,8 +1202,9 @@ def main():
     detail("fused_vs_plain", cases=len(fused_cases), max_abs_err=fused_err,
            tolerance="1e-6 * max|plain| per case")
 
-    ms_cases = student_epilogue_shapes(BATCH) + student_epilogue_shapes(PATH_BATCH) + [
-        (2, 5, 7, 3), (3, 9, 9, 39), (2, 6, 6, 130)]
+    # the student's training shapes, and the full-width scoring batch's
+    ms_cases = student_epilogue_shapes(BATCH) + student_epilogue_shapes(PATH_BATCH) + \
+        prune_fused_shapes + [(2, 5, 7, 3), (3, 9, 9, 39), (2, 6, 6, 130)]
     ms_err = 0.0
     for shape in ms_cases:
         g_in = torch.randn(shape, generator=rng, device=dev)
@@ -892,12 +1222,7 @@ def main():
     # -- 3. the generate path at full width ---------------------------------
     cfg = GeneratorConfig(size=SIZE)
     g = Generator(cfg, device=dev, generator=torch.Generator().manual_seed(0))
-    wrng = torch.Generator().manual_seed(1)
-    with torch.no_grad():  # zero at init: make the epilogue's noise and bias terms count
-        for m in g.modules():
-            if isinstance(m, stylegan2.StyledConv):
-                m.noise.weight.copy_(torch.randn(1, generator=wrng))
-                m.activate.bias.copy_(0.2 * torch.randn(m.activate.bias.shape, generator=wrng))
+    randomize_epilogues(g, 1)
     g.eval()
     layout_copies = 0
     to_nhwc = stylegan2._to_nhwc
@@ -989,7 +1314,8 @@ def main():
     # (shape, pad, gain, misaligned view): the view goes in inside the
     # function, since twin() copies its inputs into fresh (aligned) tensors
     bw_cases = [(shape, (1, 1), 4.0, False)
-                for shape in student_blur_shapes(BATCH) + student_blur_shapes(PATH_BATCH)] + [
+                for shape in student_blur_shapes(BATCH) + student_blur_shapes(PATH_BATCH)
+                + prune_blur_shapes] + [
         (shape, pad, 1.0, False) for shape, pad in discriminator_blur_cases()] + [
         ((BATCH, 33, 33, 512), (1, 1), 4.0, True), ((PATH_BATCH, 129, 129, 77), (2, 2), 1.0, True)]
     reset_counts()
@@ -1250,6 +1576,7 @@ def main():
     del trainer, full, x_s, x_t
 
     eval_launches = eval_phases(g, dev, card, os.path.join(REPO, "build", "chip_smoke"))
+    prune_counts = prune_phases(g, dev, card, os.path.join(REPO, "build", "chip_smoke"))
 
     kernels = [
         {"name": "blur4", "route": "cuda",
@@ -1263,6 +1590,9 @@ def main():
          "launches_generate": launches["blur4"], "vector_launches_generate": generate_vector,
          "launches_fid": eval_launches["fid"]["blur4"],
          "launches_ppl": eval_launches["ppl"]["blur4"],
+         "launches_prune": prune_counts["blur4"] + prune_counts["blur4_backward"],
+         "launches_prune_forward": prune_counts["blur4"],
+         "launches_prune_backward": prune_counts["blur4_backward"],
          "max_abs_err": blur_err, "max_rel_err_backward": bw_blur_err,
          **{k: blur_times[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                           "library_ms", "shape")},
@@ -1274,7 +1604,8 @@ def main():
          "launches_kd_l1": train_launches["fused_noise_bias_lrelu"],
          "launches_generate": launches["fused_noise_bias_lrelu"],
          "launches_fid": eval_launches["fid"]["fused_noise_bias_lrelu"],
-         "launches_ppl": eval_launches["ppl"]["fused_noise_bias_lrelu"], "max_abs_err": fused_err,
+         "launches_ppl": eval_launches["ppl"]["fused_noise_bias_lrelu"],
+         "launches_prune": prune_counts["fused_noise_bias_lrelu"], "max_abs_err": fused_err,
          "max_rel_err_backward": bw_fused_err,
          "ms": fused_ms, "plain_ms": fused_plain_ms, "bound_ms": fused_bound,
          "bound_by": fused_by, "library_ms": None, "shape": list(f_shape)},
@@ -1284,7 +1615,8 @@ def main():
          "launches": full_launches["masked_scale"],
          "launches_kd_l1": train_launches["masked_scale"],
          "launches_fid": eval_launches["fid"]["masked_scale"],
-         "launches_ppl": eval_launches["ppl"]["masked_scale"], "max_abs_err": ms_err, "ms": ms_ms,
+         "launches_ppl": eval_launches["ppl"]["masked_scale"],
+         "launches_prune": prune_counts["masked_scale"], "max_abs_err": ms_err, "ms": ms_ms,
          "plain_ms": ms_plain_ms, "bound_ms": ms_bound, "bound_by": ms_by,
          "library_ms": ms_lib_ms, "library": "aten.leaky_relu_backward (no sqrt(2), mask > 0)",
          "shape": list(m_shape)},

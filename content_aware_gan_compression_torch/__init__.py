@@ -11,8 +11,9 @@ losses, the four training steps and the ``Trainer`` with its CLI
 reference's default objective: content-aware KD (BiSeNet's parse of the
 teacher masks both images) plus LPIPS-VGG16; FID (the FID InceptionV3) and
 PPL, in the loop and from their CLIs (``calc_inception``, ``get_fid``,
-``get_ppl``). Entry points run on ``cuda`` unless the caller passes
-``device="cpu"``.
+``get_ppl``); channel pruning, content-aware and by the 8 baseline metrics,
+with its CLI (``prune``). Entry points run on ``cuda`` unless the caller
+passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

@@ -317,6 +317,61 @@ class Generator(nn.Module):
         return [getattr(self.noises, f"noise_{i}").permute(0, 2, 3, 1)
                 for i in range(self.config.num_layers)]
 
+    # -- what the pruning metrics read ----------------------------------------
+
+    def scored_convs(self):
+        """The modulated convs whose input channels the pruning metrics
+        score: ``[conv1] + convs + [to_rgbs[-1]]``."""
+        return [self.conv1.conv, *[c.conv for c in self.convs], self.to_rgbs[-1].conv]
+
+    def feature_maps(self, z, noise=None, generator=None):
+        """Per-layer NHWC activations ``[const input, conv1 out, convs.0 out,
+        ...]``, ``len(net_shape)`` maps (the JAX package's
+        generator_feature_maps, which returns them NCHW; reference
+        Util/network_util.py:54-87). One W, not W+, conditions every layer;
+        ``noise`` is drawn from ``generator`` when not given."""
+        w = self.get_latent(z)
+        if noise is None:
+            if generator is None:
+                raise ValueError("feature_maps needs noise or a generator")
+            noise = self.make_noise(z.shape[0], generator)
+        x = self.input.input.permute(0, 2, 3, 1).contiguous().expand(z.shape[0], -1, -1, -1)
+        outs = [x]
+        x = self.conv1(x, w, noise[0])
+        outs.append(x)
+        for i, conv in enumerate(self.convs):
+            x = conv(x, w, noise[i + 1])
+            outs.append(x)
+        return outs
+
+    def modulation_styles(self, z):
+        """The modulation scalars ``s = A(W)`` [N, in] of each of
+        ``scored_convs()`` (the JAX package's generator_modulation_styles;
+        reference Util/network_util.py:168-198)."""
+        w = self.get_latent(z)
+        return [conv.modulation(w) for conv in self.scored_convs()]
+
+    def effective_weight_means(self, z):
+        """The batch mean [O, I, k, k] of each of ``scored_convs()``'s
+        (de)modulated kernels (the JAX package's
+        generator_effective_weight_means). A sample's kernel is ``scale * W *
+        s[i] * d[o]``, a rank-1 modulation of the shared kernel, so the mean
+        is ``scale * W`` times the [O, I] mean of ``d[o] s[i]``; no per-sample
+        kernel is made. ToRGB never demodulates (reference model.py:377)."""
+        outs = []
+        for conv, s in zip(self.scored_convs(), self.modulation_styles(z)):
+            w = conv.weight[0].float()  # [O, I, k, k]
+            o, i = w.shape[:2]
+            s = s.float()
+            if conv.demodulate:
+                wsq = torch.sum(torch.square(w), dim=(2, 3))  # [O, I]
+                d = torch.rsqrt((conv.scale * conv.scale) * (torch.square(s) @ wsq.T) + 1e-8)
+                m = torch.einsum("no,ni->oi", d, s) / s.shape[0]
+            else:
+                m = s.mean(0)[None, :].expand(o, i)
+            outs.append(conv.scale * w * m[:, :, None, None])
+        return outs
+
     # -- forward ------------------------------------------------------------
 
     def synthesis(self, latent, noise):
@@ -371,7 +426,7 @@ class Generator(nn.Module):
         """
         if return_style_scalars:
             raise NotImplementedError(
-                "return_style_scalars is not ported yet (pruning slice)")
+                "return_style_scalars is not ported yet (sparsity slice)")
         if output_format not in ("NCHW", "NHWC"):
             raise ValueError(f"unknown output_format {output_format!r}")
         to_out = ((lambda t: t) if output_format == "NHWC"

@@ -140,7 +140,7 @@ def test_randomized_noise_and_mixing_follow_the_generator(pair):
 
 
 def test_unported_outputs_raise(pair):
-    """return_style_scalars (the pruning slice) still raises; PPL_regularize
+    """return_style_scalars (the sparsity slice) still raises; PPL_regularize
     is ported and returns the NHWC-y path lengths."""
     _, _, g = pair
     z = torch.zeros(1, g.config.style_dim)
