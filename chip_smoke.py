@@ -13,6 +13,8 @@ Phases, each of which exits non-zero on failure:
      a view that is not 16-byte aligned); the same for masked_scale (the
      epilogue's backward) at every epilogue shape of the 11x student at
      batch 16 and path batch 8 and of the full-width generator at batch 10;
+     and all three at the projector's shapes, the full-width generator's at
+     batch 1;
   3. drive the generate path (mean latent, truncation 0.5, batch 16) of the
      full-width 256px generator, weights drawn from seed 0, and check that it
      launched blur4 6 times, all with float4 lanes, and the fused epilogue
@@ -23,8 +25,12 @@ Phases, each of which exits non-zero on failure:
   5. hold the first and second derivatives through each autograd Function on
      the card (blur4 at the student's up-blurs at batch 16 and 8 and the
      full-width generator's at batch 10, the discriminator's shapes and pads
-     and a misaligned view, the epilogue at the student's shapes) against the
-     same function built from the plain versions;
+     and a misaligned view, the full-width generator's at batch 1; the
+     epilogue at the student's shapes at batch 16, without the noise gradient
+     as training runs it and with it for a per-sample and a broadcast noise,
+     and at the full-width generator's at batch 1 with the noise gradient, as
+     the projector runs it) against the same function built from the plain
+     versions;
   6. drive the retraining path: the port's Trainer with the 11x student, the
      full-width teacher and D at 256px, batch 16, iterations 0-4 (R1 at 0,
      path length at 0 and 4), with the KD-L1 objective and then with the
@@ -91,6 +97,38 @@ Phases, each of which exits non-zero on failure:
      .npz (content-aware with a seeded BiSeNet file, and l1-out; 40 samples),
      its .npz and .pth, then the train CLI for 2 iterations on the pruned
      checkpoint with the full-width one as the teacher.
+ 19. drive the sparsity baseline at 256px (train_sparsity's defaults where
+     they matter: eta 1e-5, Global_Number 588, l1-style, the VGG percept
+     term at 3 with a full-width seeded LPIPS, KD-L1 0, Intermediate; batch
+     16, path batch 8) from the full-width generator, student and teacher:
+     SparsityTrainer.run over iterations 0-5 on a seeded uint8 cache, the prune
+     event after iteration 3; each phase's launches against the shapes (the
+     g phase as retraining's, with the student's blurs on float4 lanes until
+     the prune and on the lanes its new widths give after it), the new
+     net_shape (at least 589 channels removed) and its FLOPs % in the log;
+ 20. the sparsity rates: iterations/s over iterations 16-23 before and after
+     a prune event, with TF32 off and under the defaults, the prune event's
+     seconds and peak memory;
+ 21. one sparse G step at 64px on the card and on the CPU, each against
+     float64 (phase 7's bound, cuDNN deterministic, TF32 off);
+ 22. ``python -m content_aware_gan_compression_torch.train_sparsity`` for 4
+     iterations with the prune event after 2: the FLOPs % line and the
+     checkpoint saved after the prune; then phases 2 and 5 again at the
+     student's shapes at batch 16 and path batch 8 for each net_shape that
+     the prune events of 19, 20 and 22 left (widths that are mostly not
+     multiples of 4, so scalar lanes);
+ 23. drive the projector at 256px (the full-width generator, its noise
+     weights drawn, and a full-width seeded LPIPS) on one of the generator's
+     samples: Adam for 100 iterations and L-BFGS (optax's, with its zoom line
+     search) for 20, the latent and the noise maps optimized, 4096 samples
+     for the mean latent, with TF32 off and under the defaults; each
+     evaluation launches blur4 6 times forward and 6 backward, the epilogue
+     13 times and masked_scale 13 times; both losses decrease and the noise
+     maps move (the epilogue's noise gradient); PSNR, evaluations per L-BFGS
+     iteration, Adam iterations/s and L-BFGS seconds per iteration;
+ 24. ``python -m content_aware_gan_compression_torch.get_projected_image`` on
+     a PNG written by ``write_png`` (read without Pillow where Pillow is
+     absent): the printed scores and the side-by-side PNG.
 The last lines are a {"kernels": [...]} JSON line, the card's name and power
 limit, and {"ok": true, "device": {...}}. Needs a CUDA card; without one it
 exits non-zero and prints no result.
@@ -150,35 +188,57 @@ def detail(phase, **fields):
     print(json.dumps({"phase": phase, "t": round(time.time() - START, 1), **fields}), flush=True)
 
 
-def profile_forward(fn, iters=3, top=12, inference=True):
-    """Where a window's device time goes: torch.profiler over ``iters``
-    calls of ``fn(i)``; each kernel's share of the summed kernel time, the
-    hand-written kernels' shares, and the device's busy share of the window
-    (host clock). ``fn`` is called once before the window."""
+def profile_kernels(fn, iters):
+    """torch.profiler over ``iters`` calls of ``fn(i)``: ({kernel name: its
+    device microseconds}, the window's host-clock microseconds)."""
     from torch.profiler import ProfilerActivity, profile
 
-    mode = torch.inference_mode() if inference else contextlib.nullcontext()
-    with mode:
-        fn(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(iters):
+            fn(i)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for i in range(iters):
-                fn(i)
-            torch.cuda.synchronize()
-            window_us = (time.perf_counter() - t0) * 1e6
-    kernels = [(e.key, e.self_device_time_total) for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
-    total = sum(t for _, t in kernels)
+        window_us = (time.perf_counter() - t0) * 1e6
+    kernels = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
+            kernels[e.key] = kernels.get(e.key, 0.0) + e.self_device_time_total
+    return kernels, window_us
+
+
+def device_time(parts, top=12):
+    """Where the device time goes over profiled windows, each standing for
+    ``weight`` windows like it: ``parts`` is [(kernels, window_us, calls,
+    weight)]. Each kernel's share of the summed kernel time, the
+    hand-written kernels' shares, kernel ms per call and the device's busy
+    share of the host clock."""
+    kernels, window_us, calls = {}, 0.0, 0
+    for part, us, n, weight in parts:
+        for k, t in part.items():
+            kernels[k] = kernels.get(k, 0.0) + weight * t
+        window_us += weight * us
+        calls += weight * n
+    total = sum(kernels.values())
     if total == 0:
         return "not measured: the profiler recorded no device time"
-    kernels.sort(key=lambda kt: -kt[1])
-    share = lambda word: sum(t for k, t in kernels if word in k) / total  # noqa: E731
-    return {"kernel_ms_per_call": total / iters / 1e3,
+    ranked = sorted(kernels.items(), key=lambda kt: -kt[1])
+    share = lambda word: sum(t for k, t in ranked if word in k) / total  # noqa: E731
+    return {"kernel_ms_per_call": total / calls / 1e3,
             "busy_share": total / window_us,
             "blur4_share": share("blur4"), "epilogue_share": share("fnbl_"),
             "masked_scale_share": share("masked_scale"),
-            "top": [[k[:80], round(t / total, 4)] for k, t in kernels[:top]]}
+            "top": [[k[:80], round(t / total, 4)] for k, t in ranked[:top]]}
+
+
+def profile_forward(fn, iters=3, top=12, inference=True):
+    """``device_time`` of one profiled window of ``iters`` calls of
+    ``fn(i)``, after one call outside it."""
+    mode = torch.inference_mode() if inference else contextlib.nullcontext()
+    with mode:
+        fn(0)
+        kernels, window_us = profile_kernels(fn, iters)
+    return device_time([(kernels, window_us, iters, 1)], top)
 
 
 def generator_layer_shapes(batch=BATCH):
@@ -283,6 +343,132 @@ def discriminator_blur_cases():
     ch = DiscriminatorConfig(size=SIZE).channels()
     return [((BATCH, SIZE >> i, SIZE >> i, ch[SIZE >> i]), pad)
             for i in range(int(np.log2(SIZE)) - 2) for pad in ((2, 2), (1, 1))]
+
+
+def hold_forward(blur_cases, fused_cases, ms_shapes, rng):
+    """Each kernel against its plain version on the card, on inputs drawn
+    from ``rng``: blur4 over (shape, pad, gain, misaligned view) cases to
+    1e-5 of max|x|, with one launch per case and float4 lanes where C is a
+    multiple of 4 and the view aligned; the epilogue over (shape, noise
+    batch) cases and masked_scale over shapes, each to 1e-6 of the plain
+    version's largest value. Returns the largest absolute error of each."""
+    from content_aware_gan_compression_torch.ops import make_kernel
+    from content_aware_gan_compression_torch.ops.cuda import (
+        blur4, blur4_plain, correlation_taps, counts, fused_noise_bias_lrelu,
+        fused_noise_bias_lrelu_plain, masked_scale, masked_scale_plain)
+
+    dev = rng.device
+    k4 = make_kernel([1, 3, 3, 1])
+    before = counts()
+    blur_err = 0.0
+    for shape, pad, gain, offset in blur_cases:
+        x = torch.randn(shape, generator=rng, device=dev)
+        if offset:
+            x = misaligned(x)
+        got = blur4(x, k4, pad, gain)
+        want = blur4_plain(x, correlation_taps(k4, gain), pad)
+        torch.cuda.synchronize()
+        err, tol = (got - want).abs().max().item(), 1e-5 * x.abs().max().item()
+        if got.shape != want.shape or not err <= tol:
+            fail(f"blur4 {shape} pad {pad} gain {gain}: max_abs_err {err} > tol {tol}")
+        blur_err = max(blur_err, err)
+    after = counts()
+    launched = {k: after[k] - before[k] for k in ("blur4", "blur4_vector")}
+    want_vector = sum(s[3] % 4 == 0 and not offset for s, _, _, offset in blur_cases)
+    if launched != {"blur4": len(blur_cases), "blur4_vector": want_vector}:
+        fail(f"blur4 launched {launched}, want {len(blur_cases)} with {want_vector} "
+             "of them float4")
+
+    fused_err = 0.0
+    for shape, noise_batch in fused_cases:
+        x = torch.randn(shape, generator=rng, device=dev)
+        noise = torch.randn((noise_batch, *shape[1:3], 1), generator=rng, device=dev)
+        bias = 0.5 * torch.randn(shape[3], generator=rng, device=dev)
+        nw = torch.tensor([0.7], device=dev)
+        got = fused_noise_bias_lrelu(x, noise, bias, nw)
+        want = fused_noise_bias_lrelu_plain(x, noise, bias, nw)
+        torch.cuda.synchronize()
+        err, tol = (got - want).abs().max().item(), 1e-6 * want.abs().max().item()
+        if not err <= tol:
+            fail(f"fused_noise_bias_lrelu {shape}: max_abs_err {err} > tol {tol}")
+        fused_err = max(fused_err, err)
+
+    ms_err = 0.0
+    for shape in ms_shapes:
+        g_in = torch.randn(shape, generator=rng, device=dev)
+        out = torch.randn(shape, generator=rng, device=dev)
+        out.view(-1)[:3] = 0.0  # the mask is 1 at exactly 0, as in JAX
+        got, want = masked_scale(g_in, out), masked_scale_plain(g_in, out)
+        torch.cuda.synchronize()
+        err, tol = (got - want).abs().max().item(), 1e-6 * want.abs().max().item()
+        if not err <= tol:
+            fail(f"masked_scale {shape}: max_abs_err {err} > tol {tol}")
+        ms_err = max(ms_err, err)
+    return blur_err, fused_err, ms_err
+
+
+def twin(fn_kernel, fn_plain, args):
+    """d sum(f^3) and d ||d sum(f^3)||^2 in every input that needs a
+    gradient, through the Function on the card and through the plain
+    version under autograd; the largest error relative to the plain
+    version's largest value."""
+    worst = 0.0
+    results = []
+    for fn in (fn_kernel, fn_plain):
+        xs = [a.detach().clone().requires_grad_(a.requires_grad) for a in args]
+        wrt = [x for x in xs if x.requires_grad]
+        grads = torch.autograd.grad(fn(*xs).pow(3).sum(), wrt, create_graph=True)
+        second = torch.autograd.grad(sum(t.pow(2).sum() for t in grads), wrt)
+        results.append([t.detach() for t in (*grads, *second)])
+    for a, b in zip(*results):
+        worst = max(worst, max_rel_err(a, b))
+    return worst
+
+
+def hold_backward(blur_cases, epilogue_cases, rng):
+    """The first and second order of blur4 (asymmetric taps) over (shape,
+    pad, gain, misaligned view) cases, and of the epilogue over (shape, noise
+    batch, noise needs a gradient) cases, against the plain versions to 1e-5
+    of their largest values (``twin``); x, the bias and the noise weight
+    always need a gradient. Each case must launch blur4's backward or
+    masked_scale at least twice. Returns the two largest relative errors."""
+    from content_aware_gan_compression_torch.ops.cuda import (
+        blur4, blur4_plain, correlation_taps, counts, fused_noise_bias_lrelu,
+        fused_noise_bias_lrelu_plain)
+
+    dev = rng.device
+    k_asym = torch.arange(16, dtype=torch.float32).reshape(4, 4) / 120  # flip != itself
+    before = counts()
+    blur_err = 0.0
+    for shape, pad, gain, offset in blur_cases:
+        # the view goes in inside the function: twin() copies its inputs
+        # into fresh (aligned) tensors
+        x = torch.randn(shape, generator=rng, device=dev, requires_grad=True)
+        view = misaligned if offset else (lambda t: t)
+        err = twin(lambda x: blur4(view(x), k_asym, pad, gain),
+                   lambda x: blur4_plain(view(x), correlation_taps(k_asym, gain), pad), [x])
+        if not err <= 1e-5:
+            fail(f"blur4 backward {shape} pad {pad}: relative error {err} > 1e-5")
+        blur_err = max(blur_err, err)
+    fused_err = 0.0
+    for shape, noise_batch, noise_grad in epilogue_cases:
+        args = [torch.randn(shape, generator=rng, device=dev),
+                torch.randn((noise_batch, *shape[1:3], 1), generator=rng, device=dev),
+                0.5 * torch.randn(shape[3], generator=rng, device=dev),
+                torch.tensor([0.7], device=dev)]
+        for i, a in enumerate(args):
+            a.requires_grad_(i != 1 or noise_grad)
+        err = twin(fused_noise_bias_lrelu, fused_noise_bias_lrelu_plain, args)
+        if not err <= 1e-5:
+            fail(f"epilogue backward {shape}, noise batch {noise_batch}, noise gradient "
+                 f"{noise_grad}: relative error {err} > 1e-5")
+        fused_err = max(fused_err, err)
+    torch.cuda.synchronize()
+    after = counts()
+    if (after["blur4_backward"] - before["blur4_backward"] < 2 * len(blur_cases)
+            or after["masked_scale"] - before["masked_scale"] < 2 * len(epilogue_cases)):
+        fail(f"the backward checks did not go through the kernels: {before} -> {after}")
+    return blur_err, fused_err
 
 
 def write_train_checkpoints(work, size):
@@ -425,8 +611,12 @@ def drive_train_path(trainer, reals, want_phase, draws0=None):
 def train_window(trainer, reals, mpl, window=range(16, 32)):
     """Iterations/s, host ms per iteration and peak memory over ``window``
     (by default 16-31: R1 at 16, path length at 16, 20, 24, 28) after two
-    warm-up iterations, then the same window under the profiler. Returns
-    (dict, the running mean path length)."""
+    warm-up iterations; then where its device time goes: one iteration of
+    each kind in it (with R1 and path length, with path length alone, with
+    neither; the first of each) under the profiler, whose host-side
+    processing takes seconds per iteration, weighted by how many of that
+    kind the window holds. Returns (dict, the running mean path length)."""
+    cfg = trainer.cfg
     for it in (1, 2):  # warm-up, no regularizer
         trainer.step(it, reals[it % 4], mpl)
     torch.cuda.synchronize()
@@ -439,11 +629,17 @@ def train_window(trainer, reals, mpl, window=range(16, 32)):
     out = {"iterations_per_s": len(window) / seconds,
            "ms_per_iteration": seconds * 1e3 / len(window),
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    kinds = {}  # (R1, path length) -> [its first iteration, its count]
+    for it in window:
+        kinds.setdefault((it % cfg.d_reg_freq == 0, it % cfg.g_reg_freq == 0), [it, 0])[1] += 1
     state = {"mpl": mpl}
-
-    def one(i):
-        _, state["mpl"] = trainer.step(window[i % len(window)], reals[i % 4], state["mpl"])
-    out["device_time"] = profile_forward(one, iters=len(window), inference=False)
+    parts = []
+    for it, count in kinds.values():
+        def one(_, it=it):
+            _, state["mpl"] = trainer.step(it, reals[it % 4], state["mpl"])
+        parts.append((*profile_kernels(one, 1), 1, count))
+    out["device_time"] = device_time(parts)
+    out["device_time_weights"] = {f"iteration {it}": count for it, count in kinds.values()}
     return out, state["mpl"]
 
 
@@ -1008,6 +1204,407 @@ def prune_phases(g, dev, card, work):
     return launches
 
 
+# sparsity baseline: train_sparsity.py's defaults where they matter (eta
+# 1e-5, Global_Number 588, l1-style, VGG percept 3, KD-L1 0, Intermediate,
+# 9 samples), from the full-width generator; SparsityTrainer.run over iterations
+# 0-5 with the prune event after iteration 3; the CLI over 4 iterations
+SPARSITY_OPTS = dict(sparsity_eta=1e-5, model_prune_freq=3, num_rmve_channel=588,
+                     prune_metric="l1-style", pruning_mode="Global_Number",
+                     kd_percept_mode="VGG")
+SPARSITY_ITERS = 6
+# projector: get_projected_image's defaults cut from 800 iterations
+PROJECT_ADAM_ITERS = 100
+PROJECT_LBFGS_ITERS = 20
+PROJECT_CLI_ITERS = 10
+
+
+def student_lanes(net_shape):
+    """How many of a generator's up-blurs take float4 lanes: those whose
+    width (the up conv's output) is a multiple of 4."""
+    return sum(c % 4 == 0 for c in [s[3] for s in student_blur_shapes(1, net_shape)])
+
+
+def sparse_phase_launches(log_size, net_shape):
+    """``train_phase_launches`` with the student at ``net_shape``: its blurs
+    take float4 lanes where its widths allow. The student's blur passes are 1
+    in d (forward), 2 in g (forward, backward) and 4 in g_reg (forward, the
+    path-length grad, its backward and back through the forward)."""
+    want = train_phase_launches(log_size)
+    nv = student_lanes(net_shape)
+    for phase, passes in (("d", 1), ("g", 2), ("g_reg", 4)):
+        want[phase]["blur4_vector"] += passes * nv
+    return want
+
+
+def sparsity_config(size, batch, ckpt, cache, **kw):
+    """The sparsity CLI's TrainConfig: the checkpoint as student and
+    teacher, KD-L1 off, the percept term at 3, Intermediate, 9 samples."""
+    from content_aware_gan_compression_torch.train import TrainConfig
+
+    base = dict(data_folder=cache, generated_img_size=size, batch_size=batch, ckpt=ckpt,
+                teacher=ckpt, kd_l1_lambda=0.0, kd_lpips_lambda=3.0, kd_mode="Intermediate",
+                content_aware_KD=False, val_sample_num=9, val_sample_freq=1000,
+                model_save_freq=100000)
+    return TrainConfig(**{**base, **kw})
+
+
+def sparsity_vs_float64(work, dev):
+    """One sparse G step at 64px, batch 4, full width, lr 0, with KD-L1
+    (weight 1), the VGG term of a width-0.25 seeded LPIPS and eta 1e-2, on
+    the card and on the CPU, each against the CPU in float64 (phase 7's
+    bound: card <= 2 * cpu + 1e-4, losses and G's gradients). Runs under
+    the caller's cuDNN flags (deterministic, TF32 off)."""
+    from content_aware_gan_compression_torch.models import Generator, GeneratorConfig
+    from content_aware_gan_compression_torch.train.sparsity import SparsityTrainer
+    from content_aware_gan_compression_torch.utils import save_checkpoint
+
+    g64 = Generator(GeneratorConfig(size=64), device="cpu",
+                    generator=torch.Generator().manual_seed(0))
+    randomize_epilogues(g64, 1)
+    ckpt = os.path.join(work, "full64.npz")
+    save_checkpoint(ckpt, {"g": g64.state_dict(), "g_ema": g64.state_dict()})
+    cfg = sparsity_config(64, 4, ckpt, "", kd_l1_lambda=1.0, init_lr=0.0)
+    opts = {**SPARSITY_OPTS, "sparsity_eta": 1e-2}
+    lp = seeded_lpips(0.25).state_dict()
+    runs = {key: SparsityTrainer(cfg, opts, device=d, lpips_params=lp)
+            for key, d in (("cpu", "cpu"), ("card", dev), ("f64", "cpu"))}
+    for module in (runs["f64"].g, runs["f64"].d, runs["f64"].teacher, runs["f64"].lpips):
+        module.double()
+    draws = runs["cpu"].draw(0)["g"]
+    results = {}
+    for key, tr in runs.items():
+        d = to_device(draws, tr.device)
+        if key == "f64":
+            d = {k: ([t.double() for t in v] if isinstance(v, list)
+                     else v.double() if v.is_floating_point() else v) for k, v in d.items()}
+        metrics = tr.g_phase(d)
+        results[key] = {"losses": {k: v.item() for k, v in metrics.items()},
+                        "grads": {n: p.grad.detach().cpu().double()
+                                  for n, p in tr.g.named_parameters()}}
+
+    def distance(key):
+        losses = max(abs(v - results["f64"]["losses"][k])
+                     / max(abs(results["f64"]["losses"][k]), 1e-6)
+                     for k, v in results[key]["losses"].items())
+        grads = max(max_rel_err(results[key]["grads"][n], w)
+                    for n, w in results["f64"]["grads"].items())
+        return {"losses": losses, "g": grads}
+
+    card_err, cpu_err = distance("card"), distance("cpu")
+    out = {"card_vs_float64": card_err, "cpu_vs_float64": cpu_err,
+           "losses_float64": results["f64"]["losses"]}
+    bad = {k: (card_err[k], cpu_err[k]) for k in card_err
+           if not card_err[k] <= 2 * cpu_err[k] + 1e-4}
+    if bad:
+        fail(f"the sparse G step on the card vs float64 on the CPU: {bad}")
+    if not all(results["f64"]["losses"][k] > 0 for k in ("sparse", "kd_percept_loss")):
+        fail(f"64px sparse step: a term is not > 0: {results['f64']['losses']}")
+    return out
+
+
+def sparsity_phases(g, dev, card, work):
+    """The sparsity baseline at 256px from the full-width generator ``g``:
+    SparsityTrainer.run with a prune event and its launches per phase, the rates
+    before and after a prune event, one sparse G step on the card and the
+    CPU against float64, and the CLI. Returns the kernels line's launch
+    counts."""
+    from content_aware_gan_compression_torch.models import default_net_shape
+    from content_aware_gan_compression_torch.ops.cuda import lane_width, reset_counts
+    from content_aware_gan_compression_torch.train.sparsity import SparsityTrainer
+    from content_aware_gan_compression_torch.utils import (
+        ExperimentLogger, load_checkpoint, pytree_to_torch_state_dict, save_checkpoint)
+    from content_aware_gan_compression_torch.utils.calculators import (
+        GENERATOR_FLOPS_256PX, styled_conv_flops)
+    from content_aware_gan_compression_torch.models import net_shape_from_params
+
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    full_shape = default_net_shape(SIZE)
+    log_size = int(np.log2(SIZE))
+    ckpt = os.path.join(work, "g256_full.npz")
+    save_checkpoint(ckpt, {"g": g.state_dict(), "g_ema": g.state_dict()},
+                    metadata={"size": SIZE})
+    cache = os.path.join(work, "ffhq256_seeded.npy")
+    np.save(cache, np.random.RandomState(6).randint(0, 256, (32, SIZE, SIZE, 3), dtype=np.uint8))
+    lpips = seeded_lpips()
+    torch.backends.cudnn.allow_tf32 = False
+
+    # -- 19. sparsity_path: the sparse run, iterations 0-5, prune after 3 --------
+    trainer = SparsityTrainer(sparsity_config(SIZE, BATCH, ckpt, cache), SPARSITY_OPTS,
+                              device=dev, lpips_params=lpips)
+    logger = ExperimentLogger(work, name="sparsity")
+    phases = []
+    reset_counts()
+    t0 = time.time()
+    trainer.run(max_iters=SPARSITY_ITERS, logger=logger, phase_hook=phase_counter(phases))
+    torch.cuda.synchronize()
+    path_s = time.time() - t0
+    logger.close()
+    new_shape = tuple(trainer.g.config.net_shape)
+    keys = ("blur4", "blur4_backward", "blur4_vector", "fused_noise_bias_lrelu", "masked_scale")
+    want_before = sparse_phase_launches(log_size, full_shape)
+    want_after = sparse_phase_launches(log_size, new_shape)
+    names = [n for n, _ in phases]
+    prune_at = names.index("prune") if "prune" in names else len(names)
+    launches = {"before_prune": dict.fromkeys(keys, 0), "after_prune": dict.fromkeys(keys, 0)}
+    bad = []
+    for i, (name, c) in enumerate(phases):
+        got = {k: c[k] for k in keys}
+        if name == "sample":  # 9 samples of g_ema at full width
+            want = {**dict.fromkeys(keys, 0), "blur4": log_size - 2,
+                    "blur4_vector": log_size - 2, "fused_noise_bias_lrelu": 2 * log_size - 3}
+        elif name == "prune":  # l1-style scores the modulations only
+            want = dict.fromkeys(keys, 0)
+        else:
+            want = (want_before if i < prune_at else want_after)[name]
+        if got != want:
+            bad.append((i, name, got, want))
+        side = "before_prune" if i < prune_at else "after_prune"
+        for k in keys:
+            launches[side][k] += got[k]
+    g_first = next(c for n, c in phases if n == "g")
+    same_as_train = {k: g_first[k] for k in keys if k != "blur4_vector"} == {
+        k: train_phase_launches(log_size)["g"][k] for k in keys if k != "blur4_vector"}
+    with open(next(os.path.join(logger.exp_dir, f) for f in os.listdir(logger.exp_dir)
+                   if f.endswith(".out"))) as f:
+        log = f.read()
+    with open(os.path.join(logger.exp_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    steps = [r for r in recs if "d" in r]
+    pct = styled_conv_flops(new_shape, False) / GENERATOR_FLOPS_256PX * 100.0
+    removed = sum(full_shape) - sum(new_shape)
+    lanes_after = [lane_width(s[3]) for s in student_blur_shapes(BATCH, new_shape)]
+    detail("sparsity_path", size=SIZE, batch=BATCH, path_batch=PATH_BATCH, opts=SPARSITY_OPTS,
+           iterations=SPARSITY_ITERS, seconds=round(path_s, 3), phases=names,
+           launches=launches, bad_phases=bad, g_phase_same_as_train_g=same_as_train,
+           net_shape_after=list(new_shape), removed=removed, flops_pct=pct,
+           blur4_lanes_after_prune=lanes_after,
+           metrics=[{k: r[k] for k in ("iter", "g", "sparse", "kd_percept_loss", "d")}
+                    for r in steps], tf32=False,
+           lpips="LPIPS-VGG16, full width, seed 5 (its VGG trunk on raw images)")
+    if bad or not same_as_train:
+        fail(f"sparsity_path launches: {bad}")
+    if (names.count("prune") != 1 or names[prune_at - 1] != "ema"
+            or names[:prune_at].count("ema") != SPARSITY_OPTS["model_prune_freq"] + 1):
+        fail(f"sparsity_path: the prune event did not follow iteration 3: {names}")
+    if removed < SPARSITY_OPTS["num_rmve_channel"] + 1 or f"FLOPs %: {round(pct, 2)}" not in log:
+        fail(f"sparsity_path: removed {removed}, FLOPs % {pct} (log has it: "
+             f"{f'FLOPs %: {round(pct, 2)}' in log})")
+    if ([r["iter"] for r in steps] != list(range(SPARSITY_ITERS))
+            or not all(np.isfinite(v) for r in steps for v in r.values())
+            or not all(r["sparse"] > 0 and r["kd_percept_loss"] > 0 for r in steps)):
+        fail(f"sparsity_path metrics: {steps}")
+    del trainer
+
+    # -- 20. sparsity_rate: windows before and after a prune event ----------------
+    rate = {}
+    trainer = SparsityTrainer(sparsity_config(SIZE, BATCH, ckpt, cache), SPARSITY_OPTS,
+                              device=dev, lpips_params=lpips)
+    reals = np.random.RandomState(7).randint(0, 256, (4, BATCH, SIZE, SIZE, 3), dtype=np.uint8)
+    window = range(16, 24)
+    for side in ("before_prune", "after_prune"):
+        if side == "after_prune":
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            shape_after, pct_after = trainer.prune_in_training()
+            torch.cuda.synchronize()
+            rate["prune_event_s"] = time.perf_counter() - t0
+            rate["net_shape_after"] = list(shape_after)
+        mpl = torch.zeros((), device=dev)
+        for label, tf32 in (("tf32_off", False), ("pytorch_defaults", True)):
+            torch.backends.cudnn.allow_tf32 = tf32
+            rate[f"{side}_{label}"], mpl = train_window(trainer, reals, mpl, window)
+    torch.backends.cudnn.allow_tf32 = False
+    detail("sparsity_rate", size=SIZE, batch=BATCH, path_batch=PATH_BATCH, card=card,
+           window="iterations 16-23: 8 D and sparse G steps, 1 R1, 2 path length; "
+                  "device_time: iterations 16 (R1, path length), 17 (neither) and 20 (path "
+                  "length) profiled, weighted 1, 6 and 1", **rate,
+           note="prune_event_s: host clock around prune_in_training (500 latents scored "
+                "with l1-style, the surgery of g and g_ema, both optimizers rebuilt); "
+                "pytorch_defaults: cuDNN TF32 on, matmul TF32 off")
+    del trainer
+
+    # -- 21. sparsity_cuda_vs_cpu: one sparse G step at 64px against float64 --------
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                     allow_tf32=False):
+        small = sparsity_vs_float64(work, dev)
+    detail("sparsity_cuda_vs_cpu", size=64, batch=4, tf32=False, lr=0.0,
+           cudnn_deterministic=True, **small,
+           measure="largest |a-b| / max|float64| over G's parameter gradients; losses relative",
+           tolerance="card <= 2 * cpu + 1e-4")
+
+    # -- 22. sparsity_cli: train_sparsity over 4 iterations, prune after 2 ---------
+    vgg_file, lins_file = write_aux_files(work, lpips)
+    root = os.path.join(work, "cli_sparsity")
+    t0 = time.time()
+    proc = subprocess.run([
+        sys.executable, "-m", "content_aware_gan_compression_torch.train_sparsity", "--path",
+        cache, "--size", str(SIZE), "--ckpt", ckpt, "--teacher_ckpt", ckpt, "--iter", "4",
+        "--model_prune_freq", "2", "--model_save_freq", "3", "--lpips_vgg_ckpt", vgg_file,
+        "--lpips_lins_ckpt", lins_file, "--exp_root", root], cwd=REPO, capture_output=True,
+        text=True, timeout=600)
+    if proc.returncode != 0:
+        fail(f"train_sparsity CLI rc {proc.returncode}: {proc.stderr[-3000:]}")
+    (exp,) = [os.path.join(root, d) for d in os.listdir(root) if d.startswith("Exp_")]
+    with open(next(os.path.join(exp, f) for f in os.listdir(exp) if f.endswith(".out"))) as f:
+        log = f.read()
+    shape_line = [ln for ln in log.splitlines() if ln.startswith("Shape: ")]
+    flops_line = [ln for ln in log.splitlines() if ln.startswith("FLOPs %: ")]
+    cli_shape = tuple(json.loads(shape_line[0][len("Shape: "):])) if shape_line else ()
+    trees, meta = load_checkpoint(os.path.join(exp, "ckpt", "000003.npz"))
+    saved_shape = tuple(net_shape_from_params(pytree_to_torch_state_dict(trees["g_ema"])))
+    cli_pct = round(styled_conv_flops(cli_shape, False) / GENERATOR_FLOPS_256PX * 100.0, 2) \
+        if cli_shape else None
+    cli = {"seconds": round(time.time() - t0, 3), "shape": list(cli_shape),
+           "flops_line": flops_line, "saved_net_shape": list(saved_shape),
+           "saved_trees": sorted(trees), "metadata_iter": meta.get("iter"),
+           "warnings": [ln for ln in proc.stdout.splitlines() if "WARNING" in ln]}
+    detail("sparsity_cli", **cli, args="--iter 4 --model_prune_freq 2 --model_save_freq 3, "
+           "the CLI's defaults otherwise (batch 16, Global_Number 588, l1-style, VGG 3)")
+    if (len(shape_line) != 1 or flops_line != [f"FLOPs %: {cli_pct}"]
+            or saved_shape != cli_shape or meta.get("iter") != 3
+            or sum(full_shape) - sum(cli_shape) < SPARSITY_OPTS["num_rmve_channel"] + 1
+            or sorted(trees) != ["d", "d_optim", "g", "g_ema", "g_optim"] or cli["warnings"]):
+        fail(f"train_sparsity CLI: {cli}")
+    shutil.rmtree(work)
+
+    # -- 22, continued: the kernels against their plain versions at the pruned
+    # widths ----------------------------------------------------------------
+    # the student after each prune event above trains at widths that are
+    # mostly not multiples of 4: its up-blurs and epilogues at batch 16 and
+    # at the path batch, forward and backward (no noise gradient in training)
+    rng = torch.Generator(dev).manual_seed(13)
+    held = {}
+    for shape in dict.fromkeys((new_shape, tuple(rate["net_shape_after"]), cli_shape)):
+        blurs = student_blur_shapes(BATCH, shape) + student_blur_shapes(PATH_BATCH, shape)
+        epilogues = student_epilogue_shapes(BATCH, shape) + student_epilogue_shapes(
+            PATH_BATCH, shape)
+        errs = hold_forward([(s, (1, 1), 4.0, False) for s in blurs],
+                            [(s, s[0]) for s in epilogues], epilogues, rng)
+        errs += hold_backward([(s, (1, 1), 4.0, False) for s in blurs],
+                              [(s, s[0], False) for s in epilogues], rng)
+        held[str(list(shape))] = dict(zip(
+            ("blur4_max_abs_err", "epilogue_max_abs_err", "masked_scale_max_abs_err",
+             "blur4_backward_max_rel_err", "epilogue_backward_max_rel_err"), errs))
+    detail("sparsity_widths_vs_plain", batches=[BATCH, PATH_BATCH], net_shapes=held,
+           tolerance="forward: blur4 1e-5 * max|x|, epilogue and masked_scale 1e-6 * "
+                     "max|plain|; backward: 1e-5 of the plain version's largest value, first "
+                     "and second order")
+    return launches
+
+
+def projector_phases(g, dev, card, work):
+    """The projector at 256px on the full-width generator ``g`` (its noise
+    weights drawn, so the noise gradient counts) with a full-width seeded
+    LPIPS: Adam and L-BFGS on a target that is one of g's samples, launches
+    per evaluation, the rates with TF32 off and under the defaults, and the
+    CLI. Returns the kernels line's launch counts."""
+    import importlib.util
+
+    from content_aware_gan_compression_torch.ops.cuda import counts, reset_counts
+    from content_aware_gan_compression_torch.projector import (
+        image_projector, psnr, to_uint8_image)
+    from content_aware_gan_compression_torch.utils import save_checkpoint
+    from content_aware_gan_compression_torch.utils.logging import read_png, write_png
+
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    lpips = seeded_lpips().to(dev).requires_grad_(False).eval()
+    pick = torch.Generator(dev).manual_seed(11)
+    with torch.no_grad():
+        target = g([torch.randn(1, g.config.style_dim, generator=pick, device=dev)],
+                   noise=g.make_noise(1, pick))
+    target_uint8 = to_uint8_image(target[0].cpu().numpy())
+    keys = ("blur4", "blur4_backward", "blur4_vector", "fused_noise_bias_lrelu", "masked_scale")
+    k, e = int(np.log2(SIZE)) - 2, 2 * int(np.log2(SIZE)) - 3
+
+    # -- 23. projector_path: Adam and L-BFGS, TF32 off and the defaults -----------
+    runs, launches, bad = {}, {}, []
+    for label, tf32 in (("tf32_off", False), ("pytorch_defaults", True)):
+        torch.backends.cudnn.allow_tf32 = tf32
+        for opt, iters in (("Adam", PROJECT_ADAM_ITERS), ("LBFGS", PROJECT_LBFGS_ITERS)):
+            info = {}
+            noise0 = g.make_noise(1, torch.Generator(dev).manual_seed(12))
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, _, noises, losses = image_projector(
+                g, target, lpips=lpips, generator=torch.Generator(dev).manual_seed(0),
+                noise=noise0, opt=opt, num_iters=iters, avg_w_samples=4096, info=info)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            c = {kk: counts()[kk] for kk in keys}
+            n_eval = info["evaluations"]
+            # every evaluation a forward and a backward; one more forward for
+            # the output; full width: float4 lanes throughout
+            want = {"blur4": k * (n_eval + 1), "blur4_backward": k * n_eval,
+                    "blur4_vector": k * (2 * n_eval + 1),
+                    "fused_noise_bias_lrelu": e * (n_eval + 1), "masked_scale": e * n_eval}
+            if c != want:
+                bad.append((label, opt, c, want))
+            noise_moved = max((a - b).abs().max().item() for a, b in zip(noises, noise0))
+            run = {"seconds": seconds, "iterations": iters, "evaluations": n_eval,
+                   "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+                   "psnr": psnr(to_uint8_image(out[0].cpu().numpy()), target_uint8),
+                   "noise_moved": noise_moved, "launches": c}
+            if opt == "Adam":
+                run["iterations_per_s"] = iters / seconds
+            else:
+                run["seconds_per_iteration"] = seconds / iters
+                run["evaluations_per_iteration"] = (n_eval - 1) / iters
+                run["stepsizes"] = [round(s, 6) for s in info["stepsizes"]]
+            runs[f"{opt}_{label}"] = run
+            if label == "tf32_off":
+                launches[opt] = c
+            if not (losses[-1] < losses[0] and np.isfinite(losses).all() and noise_moved > 0):
+                fail(f"projector {opt} ({label}): losses {losses[0]} -> {losses[-1]}, "
+                     f"noise moved {noise_moved}")
+        # where an evaluation's device time goes: 5 Adam iterations
+        runs[f"Adam_{label}"]["device_time_5_iterations"] = profile_forward(
+            lambda i: image_projector(g, target, lpips=lpips, noise=noise0, opt="Adam",
+                                      num_iters=5, avg_w_samples=4096,
+                                      generator=torch.Generator(dev).manual_seed(i)),
+            iters=1, inference=False)
+    torch.backends.cudnn.allow_tf32 = False
+    detail("projector_path", size=SIZE, batch=1, avg_w_samples=4096, optimize_noise=True,
+           **runs, bad_launches=bad, card=card,
+           lpips="LPIPS-VGG16, full width, seed 5; the target is one of g's samples",
+           note="seconds: host clock around image_projector (the mean latent, the loop and "
+                "the output's forward); device_time: the profiler over one 5-iteration Adam "
+                "run; pytorch_defaults: cuDNN TF32 on, matmul TF32 off")
+    if bad:
+        fail(f"projector_path launches: {bad}")
+
+    # -- 24. projector_cli: get_projected_image on a PNG write_png wrote ---------
+    ckpt = os.path.join(work, "g256.npz")
+    save_checkpoint(ckpt, {"g_ema": g.state_dict()}, metadata={"size": SIZE})
+    image_file = os.path.join(work, "target.png")
+    write_png(image_file, target_uint8)
+    vgg_file, lins_file = write_aux_files(work, lpips)
+    side_file = os.path.join(work, "side.png")
+    t0 = time.time()
+    proc = subprocess.run([
+        sys.executable, "-m", "content_aware_gan_compression_torch.get_projected_image",
+        "--ckpt", ckpt, "--image_file", image_file, "--num_iters", str(PROJECT_CLI_ITERS),
+        "--lpips_vgg_ckpt", vgg_file, "--lpips_lins_ckpt", lins_file, "--out", side_file],
+        cwd=REPO, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        fail(f"get_projected_image CLI rc {proc.returncode}: {proc.stderr[-3000:]}")
+    side = read_png(side_file)
+    printed = [ln for ln in proc.stdout.splitlines() if "Score" in ln or "WARNING" in ln]
+    cli = {"seconds": round(time.time() - t0, 3), "printed": printed,
+           "png": list(side.shape), "left_is_target": bool((side[:, :SIZE] == target_uint8).all()),
+           "reader": "Pillow" if importlib.util.find_spec("PIL") else "read_png (no Pillow)"}
+    detail("projector_cli", **cli, args=f"--num_iters {PROJECT_CLI_ITERS}, L-BFGS")
+    if (side.shape != (SIZE, 2 * SIZE, 3) or not cli["left_is_target"]
+            or not any(ln.startswith("PSNR Score: ") for ln in printed)
+            or not any(ln.startswith("LPIPS Score: ") for ln in printed)
+            or any("WARNING" in ln for ln in printed)):
+        fail(f"get_projected_image CLI: {cli}")
+    shutil.rmtree(work)
+    return launches
+
+
 def train_vs_float64(work, dev, objectives=("kd_l1", "full_kd")):
     """One iteration at 64px, batch 4, TF32 off, on the card and on the CPU,
     each held against the CPU in float64, per phase; fails on a phase where
@@ -1161,61 +1758,24 @@ def main():
         ((2, 10, 15, 130), (1, 1), 1.0, False), ((1, 7, 7, 130), (2, 1), 4.0, False),
         ((2, 9, 8, 12), (1, 1), 4.0, False), ((3, 11, 13, 3), (2, 2), 1.0, False),
         ((BATCH, 65, 65, 512), (1, 1), 4.0, True), ((BATCH, 129, 129, 39), (2, 2), 1.0, True)]
-    blur_err = 0.0
+    # the projector's: batch 1 at full width
+    one_blur_shapes, one_fused_shapes = generator_layer_shapes(1)
+    blur_cases += [(s, (1, 1), 4.0, False) for s in one_blur_shapes]
+    fused_cases = [(s, s[0]) for s in fused_shapes + eval_fused_shapes + prune_fused_shapes
+                   + student_epilogue_shapes(PRUNE_BATCH) + one_fused_shapes] + [
+        ((2, 5, 7, 3), 2), ((2, 6, 6, 130), 1), ((16, 8, 8, 512), 1)]
+    # the student's training shapes, the full-width scoring batch's and the
+    # projector's
+    ms_cases = student_epilogue_shapes(BATCH) + student_epilogue_shapes(PATH_BATCH) + \
+        prune_fused_shapes + one_fused_shapes + [(2, 5, 7, 3), (3, 9, 9, 39), (2, 6, 6, 130)]
     reset_counts()
-    for shape, pad, gain, offset in blur_cases:
-        x = torch.randn(shape, generator=rng, device=dev)
-        if offset:
-            x = misaligned(x)
-        got = blur4(x, k4, pad, gain)
-        want = blur4_plain(x, correlation_taps(k4, gain), pad)
-        torch.cuda.synchronize()
-        err, tol = (got - want).abs().max().item(), 1e-5 * x.abs().max().item()
-        if got.shape != want.shape or not err <= tol:
-            fail(f"blur4 {shape} pad {pad} gain {gain}: max_abs_err {err} > tol {tol}")
-        blur_err = max(blur_err, err)
-    want_vector = sum(s[3] % 4 == 0 and not offset for s, _, _, offset in blur_cases)
+    blur_err, fused_err, ms_err = hold_forward(blur_cases, fused_cases, ms_cases, rng)
     blur_counts = counts()
     detail("blur4_vs_plain", cases=len(blur_cases), max_abs_err=blur_err,
            launches=blur_counts["blur4"], vector_launches=blur_counts["blur4_vector"],
            tolerance="1e-5 * max|x| per case")
-    if blur_counts["blur4"] != len(blur_cases) or blur_counts["blur4_vector"] != want_vector:
-        fail(f"blur4 launched {blur_counts}, want {len(blur_cases)} with {want_vector} "
-             "of them float4")
-
-    fused_cases = [(s, s[0]) for s in fused_shapes + eval_fused_shapes + prune_fused_shapes
-                   + student_epilogue_shapes(PRUNE_BATCH)] + [
-        ((2, 5, 7, 3), 2), ((2, 6, 6, 130), 1), ((16, 8, 8, 512), 1)]
-    fused_err = 0.0
-    for shape, noise_batch in fused_cases:
-        x = torch.randn(shape, generator=rng, device=dev)
-        noise = torch.randn((noise_batch, *shape[1:3], 1), generator=rng, device=dev)
-        bias = 0.5 * torch.randn(shape[3], generator=rng, device=dev)
-        nw = torch.tensor([0.7], device=dev)
-        got = fused_noise_bias_lrelu(x, noise, bias, nw)
-        want = fused_noise_bias_lrelu_plain(x, noise, bias, nw)
-        torch.cuda.synchronize()
-        err, tol = (got - want).abs().max().item(), 1e-6 * want.abs().max().item()
-        if not err <= tol:
-            fail(f"fused_noise_bias_lrelu {shape}: max_abs_err {err} > tol {tol}")
-        fused_err = max(fused_err, err)
     detail("fused_vs_plain", cases=len(fused_cases), max_abs_err=fused_err,
            tolerance="1e-6 * max|plain| per case")
-
-    # the student's training shapes, and the full-width scoring batch's
-    ms_cases = student_epilogue_shapes(BATCH) + student_epilogue_shapes(PATH_BATCH) + \
-        prune_fused_shapes + [(2, 5, 7, 3), (3, 9, 9, 39), (2, 6, 6, 130)]
-    ms_err = 0.0
-    for shape in ms_cases:
-        g_in = torch.randn(shape, generator=rng, device=dev)
-        out = torch.randn(shape, generator=rng, device=dev)
-        out.view(-1)[:3] = 0.0  # the mask is 1 at exactly 0, as in JAX
-        got, want = masked_scale(g_in, out), masked_scale_plain(g_in, out)
-        torch.cuda.synchronize()
-        err, tol = (got - want).abs().max().item(), 1e-6 * want.abs().max().item()
-        if not err <= tol:
-            fail(f"masked_scale {shape}: max_abs_err {err} > tol {tol}")
-        ms_err = max(ms_err, err)
     detail("masked_scale_vs_plain", cases=len(ms_cases), max_abs_err=ms_err,
            tolerance="1e-6 * max|plain| per case")
 
@@ -1293,62 +1853,24 @@ def main():
     shutil.rmtree(work)
 
     # -- 5. backward and double backward against the plain versions -----------
-    def twin(fn_kernel, fn_plain, args):
-        """d sum(f^3) and d ||d sum(f^3)||^2 in every input that needs a
-        gradient, through the Function on the card and through the plain
-        version under autograd; the largest error relative to the plain
-        version's largest value."""
-        worst = 0.0
-        results = []
-        for fn in (fn_kernel, fn_plain):
-            xs = [a.detach().clone().requires_grad_(a.requires_grad) for a in args]
-            wrt = [x for x in xs if x.requires_grad]
-            grads = torch.autograd.grad(fn(*xs).pow(3).sum(), wrt, create_graph=True)
-            second = torch.autograd.grad(sum(t.pow(2).sum() for t in grads), wrt)
-            results.append([t.detach() for t in (*grads, *second)])
-        for a, b in zip(*results):
-            worst = max(worst, max_rel_err(a, b))
-        return worst
-
-    k_asym = torch.arange(16, dtype=torch.float32).reshape(4, 4) / 120  # flip != itself
-    # (shape, pad, gain, misaligned view): the view goes in inside the
-    # function, since twin() copies its inputs into fresh (aligned) tensors
+    # (shape, pad, gain, misaligned view)
     bw_cases = [(shape, (1, 1), 4.0, False)
                 for shape in student_blur_shapes(BATCH) + student_blur_shapes(PATH_BATCH)
-                + prune_blur_shapes] + [
+                + prune_blur_shapes + one_blur_shapes] + [
         (shape, pad, 1.0, False) for shape, pad in discriminator_blur_cases()] + [
         ((BATCH, 33, 33, 512), (1, 1), 4.0, True), ((PATH_BATCH, 129, 129, 77), (2, 2), 1.0, True)]
+    # (shape, noise batch, noise gradient): training's (no noise gradient),
+    # the noise gradient with a per-sample and a broadcast noise, and the
+    # projector's at batch 1
+    epilogue_cases = [(s, s[0], False) for s in student_epilogue_shapes(BATCH)] + [
+        (s, nb, True) for s in student_epilogue_shapes(BATCH) for nb in (BATCH, 1)] + [
+        (s, 1, True) for s in one_fused_shapes]
     reset_counts()
-    bw_blur_err = 0.0
-    for shape, pad, gain, offset in bw_cases:
-        x = torch.randn(shape, generator=rng, device=dev, requires_grad=True)
-        view = misaligned if offset else (lambda t: t)
-        err = twin(lambda x: blur4(view(x), k_asym, pad, gain),
-                   lambda x: blur4_plain(view(x), correlation_taps(k_asym, gain), pad), [x])
-        if not err <= 1e-5:
-            fail(f"blur4 backward {shape} pad {pad}: relative error {err} > 1e-5")
-        bw_blur_err = max(bw_blur_err, err)
-    bw_fused_err = 0.0
-    for shape in student_epilogue_shapes(BATCH):
-        args = [torch.randn(shape, generator=rng, device=dev, requires_grad=True),
-                torch.randn((shape[0], *shape[1:3], 1), generator=rng, device=dev),
-                0.5 * torch.randn(shape[3], generator=rng, device=dev),
-                torch.tensor([0.7], device=dev)]
-        args[2].requires_grad_(True)
-        args[3].requires_grad_(True)
-        err = twin(fused_noise_bias_lrelu, fused_noise_bias_lrelu_plain, args)
-        if not err <= 1e-5:
-            fail(f"epilogue backward {shape}: relative error {err} > 1e-5")
-        bw_fused_err = max(bw_fused_err, err)
-    torch.cuda.synchronize()
-    bw_counts = counts()
+    bw_blur_err, bw_fused_err = hold_backward(bw_cases, epilogue_cases, rng)
     detail("backward_vs_plain", blur4_cases=len(bw_cases), blur4_max_rel_err=bw_blur_err,
-           epilogue_cases=len(STUDENT_SHAPE) - 1, epilogue_max_rel_err=bw_fused_err,
-           launches=bw_counts,
+           epilogue_cases=len(epilogue_cases), epilogue_max_rel_err=bw_fused_err,
+           launches=counts(),
            tolerance="1e-5 of the plain version's largest value, first and second order")
-    if (bw_counts["blur4_backward"] < 2 * len(bw_cases)
-            or bw_counts["masked_scale"] < 2 * (len(STUDENT_SHAPE) - 1)):
-        fail(f"backward phase did not go through the kernels: {bw_counts}")
 
     # -- 6. the retraining path at 256px: 11x student, full teacher and D -----
     work = os.path.join(REPO, "build", "chip_smoke")
@@ -1546,7 +2068,11 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     detail("train_rate", size=SIZE, batch=BATCH, path_batch=PATH_BATCH, dtype="float32",
            window="full_kd iterations 16-31: 16 D and G steps, 1 R1, 4 path length; "
-                  "kd_l1 iterations 16-23: 8 D and G steps, 1 R1, 2 path length", **train_rate,
+                  "kd_l1 iterations 16-23: 8 D and G steps, 1 R1, 2 path length; "
+                  "device_time: iterations 16 (R1, path length), 17 (neither) and 20 (path "
+                  "length) profiled, weighted by their kinds' counts in the window (full_kd "
+                  "1, 12, 3; kd_l1 1, 6, 1)",
+           **train_rate,
            note="pytorch_defaults: cuDNN TF32 on, matmul TF32 off; full_kd with full-width "
                 "seeded LPIPS-VGG16 and BiSeNet")
 
@@ -1577,6 +2103,22 @@ def main():
 
     eval_launches = eval_phases(g, dev, card, os.path.join(REPO, "build", "chip_smoke"))
     prune_counts = prune_phases(g, dev, card, os.path.join(REPO, "build", "chip_smoke"))
+    sparsity_counts = sparsity_phases(g, dev, card, os.path.join(REPO, "build", "chip_smoke"))
+    projector_counts = projector_phases(g, dev, card, os.path.join(REPO, "build", "chip_smoke"))
+
+    def new_paths(name, vector=False):
+        """The kernels line's launches of ``name`` on the sparsity and
+        projector paths (blur4: forward + backward)."""
+        total = (lambda c: c["blur4"] + c["blur4_backward"]) if name == "blur4" else (
+            lambda c: c[name])
+        out = {"launches_sparsity_before_prune": total(sparsity_counts["before_prune"]),
+               "launches_sparsity_after_prune": total(sparsity_counts["after_prune"]),
+               "launches_projector_adam": total(projector_counts["Adam"]),
+               "launches_projector_lbfgs": total(projector_counts["LBFGS"])}
+        if vector:
+            out["vector_launches_sparsity_after_prune"] = \
+                sparsity_counts["after_prune"]["blur4_vector"]
+        return out
 
     kernels = [
         {"name": "blur4", "route": "cuda",
@@ -1593,6 +2135,7 @@ def main():
          "launches_prune": prune_counts["blur4"] + prune_counts["blur4_backward"],
          "launches_prune_forward": prune_counts["blur4"],
          "launches_prune_backward": prune_counts["blur4_backward"],
+         **new_paths("blur4", vector=True),
          "max_abs_err": blur_err, "max_rel_err_backward": bw_blur_err,
          **{k: blur_times[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                           "library_ms", "shape")},
@@ -1605,7 +2148,8 @@ def main():
          "launches_generate": launches["fused_noise_bias_lrelu"],
          "launches_fid": eval_launches["fid"]["fused_noise_bias_lrelu"],
          "launches_ppl": eval_launches["ppl"]["fused_noise_bias_lrelu"],
-         "launches_prune": prune_counts["fused_noise_bias_lrelu"], "max_abs_err": fused_err,
+         "launches_prune": prune_counts["fused_noise_bias_lrelu"],
+         **new_paths("fused_noise_bias_lrelu"), "max_abs_err": fused_err,
          "max_rel_err_backward": bw_fused_err,
          "ms": fused_ms, "plain_ms": fused_plain_ms, "bound_ms": fused_bound,
          "bound_by": fused_by, "library_ms": None, "shape": list(f_shape)},
@@ -1616,7 +2160,8 @@ def main():
          "launches_kd_l1": train_launches["masked_scale"],
          "launches_fid": eval_launches["fid"]["masked_scale"],
          "launches_ppl": eval_launches["ppl"]["masked_scale"],
-         "launches_prune": prune_counts["masked_scale"], "max_abs_err": ms_err, "ms": ms_ms,
+         "launches_prune": prune_counts["masked_scale"], **new_paths("masked_scale"),
+         "max_abs_err": ms_err, "ms": ms_ms,
          "plain_ms": ms_plain_ms, "bound_ms": ms_bound, "bound_by": ms_by,
          "library_ms": ms_lib_ms, "library": "aten.leaky_relu_backward (no sqrt(2), mask > 0)",
          "shape": list(m_shape)},

@@ -12,8 +12,11 @@ reference's default objective: content-aware KD (BiSeNet's parse of the
 teacher masks both images) plus LPIPS-VGG16; FID (the FID InceptionV3) and
 PPL, in the loop and from their CLIs (``calc_inception``, ``get_fid``,
 ``get_ppl``); channel pruning, content-aware and by the 8 baseline metrics,
-with its CLI (``prune``). Entry points run on ``cuda`` unless the caller
-passes ``device="cpu"``.
+with its CLI (``prune``); the GAN-Slimming sparsity baseline with
+in-training pruning (``train_sparsity``); the image projector with optax's
+L-BFGS or Adam (``get_projected_image``); the FLOPs calculators and the log
+analysis. Entry points run on ``cuda`` unless the caller passes
+``device="cpu"``.
 """
 
 __version__ = "0.1.0"

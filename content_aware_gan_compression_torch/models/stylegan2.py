@@ -173,6 +173,7 @@ class ModulatedConv2d(nn.Module):
             self.blur_taps = make_kernel(blur_kernel)
 
     def forward(self, x, style):
+        """Returns (the output, the modulation scalars ``s`` [B, in])."""
         w = self.weight[0]  # [out, in, k, k]
         k = w.shape[-1]
         s = self.modulation(style)  # [B, in]
@@ -188,7 +189,7 @@ class ModulatedConv2d(nn.Module):
             out = out * torch.rsqrt(sigma).to(out.dtype)[:, None, None, :]
         if self.upsample:
             out = blur(out, self.blur_taps, pad=self.blur_pad, upsample_factor=2)
-        return out
+        return out, s
 
 
 class NoiseInjection(nn.Module):
@@ -220,9 +221,10 @@ class StyledConv(nn.Module):
         self.activate = FusedLeakyReLU(out_ch)
 
     def forward(self, x, style, noise):
-        """noise: [B or 1, H, W, 1] at the output resolution."""
-        out = self.conv(x, style)
-        return fused_noise_bias_lrelu(out, noise, self.activate.bias, self.noise.weight)
+        """noise: [B or 1, H, W, 1] at the output resolution. Returns (the
+        output, the modulation scalars [B, in])."""
+        out, s = self.conv(x, style)
+        return fused_noise_bias_lrelu(out, noise, self.activate.bias, self.noise.weight), s
 
 
 class ToRGB(nn.Module):
@@ -237,10 +239,12 @@ class ToRGB(nn.Module):
         self.register_buffer("kernel", make_kernel(blur_kernel), persistent=False)
 
     def forward(self, x, style, skip=None):
-        out = self.conv(x, style) + self.bias.permute(0, 2, 3, 1)
+        """Returns (the output, the modulation scalars [B, in])."""
+        out, s = self.conv(x, style)
+        out = out + self.bias.permute(0, 2, 3, 1)
         if skip is not None:
             out = out + upsample_2d(skip, self.kernel)
-        return out
+        return out, s
 
 
 class ConstantInput(nn.Module):
@@ -337,10 +341,10 @@ class Generator(nn.Module):
             noise = self.make_noise(z.shape[0], generator)
         x = self.input.input.permute(0, 2, 3, 1).contiguous().expand(z.shape[0], -1, -1, -1)
         outs = [x]
-        x = self.conv1(x, w, noise[0])
+        x, _ = self.conv1(x, w, noise[0])
         outs.append(x)
         for i, conv in enumerate(self.convs):
-            x = conv(x, w, noise[i + 1])
+            x, _ = conv(x, w, noise[i + 1])
             outs.append(x)
         return outs
 
@@ -376,22 +380,29 @@ class Generator(nn.Module):
 
     def synthesis(self, latent, noise):
         """W+ latent [B, n_latent, D] + per-layer noise -> (NHWC image, list
-        of per-scale NHWC rgb skips) (reference model.py:612-646)."""
+        of per-scale NHWC rgb skips, list of modulation scalars) (reference
+        model.py:612-646). The scalars [B, in] are those of conv1, of every
+        StyledConv and of the last ToRGB only (reference model.py:637-639;
+        the JAX package's ``last_rgb_scalars``)."""
         batch = latent.shape[0]
         # the one layout copy of the forward: the [1, C, 4, 4] constant to
         # NHWC (16*C floats), so that x * s below comes out NHWC-contiguous
         x = self.input.input.permute(0, 2, 3, 1).contiguous().expand(batch, -1, -1, -1)
-        x = self.conv1(x, latent[:, 0], noise[0])
-        skip = self.to_rgb1(x, latent[:, 1])
+        x, s = self.conv1(x, latent[:, 0], noise[0])
+        styles = [s]
+        skip, _ = self.to_rgb1(x, latent[:, 1])
         rgb_list = [skip]
         i = 1
         for pair, to_rgb in enumerate(self.to_rgbs):
-            x = self.convs[2 * pair](x, latent[:, i], noise[2 * pair + 1])
-            x = self.convs[2 * pair + 1](x, latent[:, i + 1], noise[2 * pair + 2])
-            skip = to_rgb(x, latent[:, i + 2], skip)
+            for j in range(2):
+                x, s = self.convs[2 * pair + j](x, latent[:, i + j], noise[2 * pair + 1 + j])
+                styles.append(s)
+            skip, s = to_rgb(x, latent[:, i + 2], skip)
+            if pair == len(self.to_rgbs) - 1:
+                styles.append(s)
             rgb_list.append(skip)
             i += 2
-        return skip, rgb_list
+        return skip, rgb_list, styles
 
     def forward(self, styles, *, input_is_latent: bool = False, inject_index=None,
                 truncation=1.0, truncation_latent=None, noise=None,
@@ -421,12 +432,11 @@ class Generator(nn.Module):
           output_format: "NCHW" (the reference's) or "NHWC", the synthesis's
             own layout, which the discriminator and the losses take as it is.
 
-        Returns images (a list per scale with ``return_rgb_list``), and the
-        W+ latent with ``return_latents``.
+        Returns images (a list per scale with ``return_rgb_list``), as
+        ``(images, styles)`` with ``return_style_scalars`` (the modulation
+        scalars of conv1, every StyledConv and the last ToRGB, each [B, in]),
+        and with the W+ latent appended with ``return_latents``.
         """
-        if return_style_scalars:
-            raise NotImplementedError(
-                "return_style_scalars is not ported yet (sparsity slice)")
         if output_format not in ("NCHW", "NHWC"):
             raise ValueError(f"unknown output_format {output_format!r}")
         to_out = ((lambda t: t) if output_format == "NHWC"
@@ -468,7 +478,7 @@ class Generator(nn.Module):
         if PPL_regularize:
             if not latent.requires_grad:  # W given as a plain tensor
                 latent = latent.detach().requires_grad_(True)
-            image, _ = self.synthesis(latent, noise)
+            image, _, _ = self.synthesis(latent, noise)
             if ppl_noise is None:
                 if generator is None:
                     raise ValueError("PPL_regularize without ppl_noise requires generator")
@@ -478,11 +488,13 @@ class Generator(nn.Module):
             path_lengths = torch.sqrt(torch.square(grad.float()).sum(2).mean(1))
             return to_out(image), path_lengths
 
-        image, rgb_list = self.synthesis(latent, noise)
+        image, rgb_list, styles = self.synthesis(latent, noise)
         if return_rgb_list:
             out = [to_out(r) for r in rgb_list]
         else:
             out = to_out(image)
+        if return_style_scalars:
+            out = (out, styles)
         if return_latents:
             return out, latent
         return out

@@ -143,8 +143,8 @@ class Trainer:
         every ``g_reg_freq``, EMA. ``real_img`` is a uint8 [B, H, W, 3] host
         batch or a float NHWC tensor; ``draws`` defaults to ``draw``'s.
         ``phase_hook(name)``, if given, runs after each phase ('d', 'd_reg',
-        'g', 'g_reg', 'ema'). Returns (metrics of 0-dim device tensors, the
-        new mean path length)."""
+        'g', 'g_reg', 'ema'). The G phase is ``g_phase``. Returns (metrics
+        of 0-dim device tensors, the new mean path length)."""
         cfg = self.cfg
         real = prepare_real(real_img, self.device)
         draws = draws if draws is not None else self.draw(iter_idx)
@@ -154,8 +154,7 @@ class Trainer:
         if iter_idx % cfg.d_reg_freq == 0:
             metrics.update(d_reg_step(self.d, self.d_opt, real, cfg))
             hook("d_reg")
-        metrics.update(g_step(self.g, self.g_opt, self.d, draws["g"], cfg, self.teacher,
-                              self.lpips, self.parser))
+        metrics.update(self.g_phase(draws["g"]))
         hook("g")
         if iter_idx % cfg.g_reg_freq == 0:
             mean_path_length, m = g_reg_step(self.g, self.g_opt, draws["g_reg"],
@@ -165,6 +164,12 @@ class Trainer:
         ema_accumulate(self.g_ema, self.g)
         hook("ema")
         return metrics, mean_path_length
+
+    def g_phase(self, draws) -> dict:
+        """The G phase of ``step``: the GAN + KD step. A trainer with another
+        G objective overrides this."""
+        return g_step(self.g, self.g_opt, self.d, draws, self.cfg, self.teacher, self.lpips,
+                      self.parser)
 
     # -------------------------------------------------------------------------
     def save(self, logger: ExperimentLogger, iter_idx: int) -> str:
@@ -197,17 +202,35 @@ class Trainer:
                                            generator=gen), iter_idx)
         return None
 
-    def run(self, *, max_iters: int | None = None, logger=None, data_seed=None):
+    def log_iteration(self, logger, iter_idx: int, train_time: float, metrics: dict):
+        """``run``'s line and record of one iteration."""
+        logger.log_iteration(iter_idx, train_time, metrics)
+
+    def event_due(self, iter_idx: int) -> bool:
+        """Whether ``run`` calls ``event`` after this iteration: never here; a
+        trainer with an event of its own overrides both."""
+        return False
+
+    def event(self, iter_idx: int, logger) -> str:
+        """The event after an iteration, logged after its line; returns its
+        name for ``phase_hook``."""
+        raise NotImplementedError
+
+    def run(self, *, max_iters: int | None = None, logger=None, data_seed=None,
+            phase_hook=None):
         """The loop from ``start_iter``: one log line per iteration, a sample
-        grid of ``g_ema`` every ``val_sample_freq`` and the FID (with
-        Inception and real statistics) and a checkpoint every
-        ``model_save_freq`` iterations. A step's metrics are fetched after the
-        next step is queued, so the fetch does not stall the card. An
-        overlapped FID advances ``fid_batches_per_iter`` batches after each
-        step and is drained before ``run`` returns; its score is logged with
-        the iteration it started at."""
+        grid of ``g_ema`` every ``val_sample_freq``, the FID (with Inception
+        and real statistics) and a checkpoint every ``model_save_freq``
+        iterations, then ``event`` where ``event_due``. A step's metrics are
+        fetched after the next step is queued, so the fetch does not stall
+        the card. An overlapped FID advances ``fid_batches_per_iter`` batches
+        after each step and is drained before ``run`` returns; its score is
+        logged with the iteration it started at. ``phase_hook`` goes to
+        ``step`` and is also called with 'sample' and the event's name after
+        those."""
         cfg = self.cfg
         logger = logger or ExperimentLogger(self.exp_root)
+        hook = phase_hook or (lambda name: None)
         dataset = open_dataset(cfg.data_folder, cfg.generated_img_size)
         loader = infinite_loader(dataset, cfg.batch_size,
                                  seed=data_seed if data_seed is not None else cfg.seed)
@@ -223,7 +246,7 @@ class Trainer:
             vals = packed.tolist()
             last.update(zip(keys, vals[:-1]))
             last["mean_path_avg"] = vals[-1]
-            logger.log_iteration(it, time.time() - t0, last)
+            self.log_iteration(logger, it, time.time() - t0, last)
 
         fid = {"eval": None, "iter": None}
 
@@ -241,7 +264,8 @@ class Trainer:
         pending = None
         for it in range(self.start_iter, end):
             t0 = time.time()
-            metrics, mean_path_length = self.step(it, next(loader), mean_path_length)
+            metrics, mean_path_length = self.step(it, next(loader), mean_path_length,
+                                                  phase_hook=phase_hook)
             keys = sorted(metrics)
             packed = torch.stack([metrics[k].float() for k in keys]
                                  + [mean_path_length.float()])
@@ -249,7 +273,9 @@ class Trainer:
             if pending is not None:
                 flush(pending)
             pending = (it, t0, keys, packed)
-            if it % cfg.val_sample_freq == 0 or (it % cfg.model_save_freq == 0 and it > 0):
+            event = self.event_due(it)
+            if (it % cfg.val_sample_freq == 0 or (it % cfg.model_save_freq == 0 and it > 0)
+                    or event):
                 flush(pending)
                 pending = None
                 if it % cfg.val_sample_freq == 0:
@@ -258,11 +284,14 @@ class Trainer:
                     save_image_grid(sample.cpu(), os.path.join(
                         logger.sample_dir, f"{str(it).zfill(6)}.png"),
                         nrow=int(cfg.val_sample_num ** 0.5))
+                    hook("sample")
                 if it % cfg.model_save_freq == 0 and it > 0:
                     if self.inception is not None:
                         fid_tick(10 ** 9)  # finish a straggler first
                         fid["eval"], fid["iter"] = self.start_fid(logger, it), it
                     self.save(logger, it)
+                if event:
+                    hook(self.event(it, logger))
         fid_tick(10 ** 9)
         if pending is not None:
             flush(pending)

@@ -1,7 +1,8 @@
 """Experiment logging (the JAX package's utils/logging.py): the reference's
 per-iteration text line (train.py:416-422, read by Util/analysis_util.py's
 regexes) beside a ``metrics.jsonl`` stream with the same fields, and sample
-grids written as PNG with the standard library alone."""
+grids written as PNG with the standard library alone (``write_png``; its
+kind of PNG is read back by ``read_png``)."""
 
 from __future__ import annotations
 
@@ -32,6 +33,71 @@ def write_png(path: str, arr: np.ndarray) -> None:
         f.write(b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", header)
                 + _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
                 + _png_chunk(b"IEND", b""))
+
+
+def _unfilter(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
+    """Undo the PNG row filters (none, sub, up, average, Paeth) of ``raw``,
+    ``h`` rows of a filter byte and ``stride`` bytes."""
+    rows = raw.reshape(h, stride + 1)
+    out = np.zeros((h, stride), np.uint8)
+    prev = np.zeros(stride, np.int32)
+    for y in range(h):
+        ftype, line = int(rows[y, 0]), rows[y, 1:].astype(np.int32)
+        if ftype == 0:
+            cur = line
+        elif ftype == 2:
+            cur = (line + prev) & 0xFF
+        elif ftype in (1, 3, 4):
+            cur = np.zeros(stride, np.int32)
+            for x in range(stride):
+                a = cur[x - bpp] if x >= bpp else 0
+                b = prev[x]
+                if ftype == 1:
+                    pred = a
+                elif ftype == 3:
+                    pred = (a + b) >> 1
+                else:
+                    c = prev[x - bpp] if x >= bpp else 0
+                    p = a + b - c
+                    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+                    pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+                cur[x] = (line[x] + pred) & 0xFF
+        else:
+            raise ValueError(f"PNG row {y}: unknown filter type {ftype}")
+        out[y] = cur
+        prev = cur
+    return out
+
+
+def read_png(path: str) -> np.ndarray:
+    """Read an 8-bit, non-interlaced grey, RGB or RGBA PNG (the kinds
+    ``write_png`` makes) as uint8 [H, W, C] with the standard library and
+    numpy. Anything else raises: decode it with Pillow instead."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path} is not a PNG file")
+    pos, header, idat = 8, None, []
+    while pos < len(data):
+        (length,), tag = struct.unpack(">I", data[pos:pos + 4]), data[pos + 4:pos + 8]
+        body = data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+        if tag == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat.append(body)
+        elif tag == b"IEND":
+            break
+    if header is None:
+        raise ValueError(f"{path}: no IHDR chunk")
+    w, h, depth, color, _, _, interlace = header
+    channels = {v: k for k, v in _PNG_COLOR_TYPE.items()}.get(color)
+    if depth != 8 or channels is None or interlace != 0:
+        raise ValueError(f"{path}: only 8-bit non-interlaced grey/RGB/RGBA PNGs are read "
+                         f"without Pillow (bit depth {depth}, color type {color}, interlace "
+                         f"{interlace}); install Pillow to read it")
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    return _unfilter(raw, h, w * channels, channels).reshape(h, w, channels)
 
 
 def save_image_grid(images_nchw, path: str, nrow: int | None = None,

@@ -140,12 +140,16 @@ def test_randomized_noise_and_mixing_follow_the_generator(pair):
 
 
 def test_unported_outputs_raise(pair):
-    """return_style_scalars (the sparsity slice) still raises; PPL_regularize
-    is ported and returns the NHWC-y path lengths."""
+    """No output is left unported: return_style_scalars (ported with the
+    sparsity baseline; its values are held to JAX in test_torch_sparsity.py)
+    returns the image and the scalars of conv1, every StyledConv and the
+    last ToRGB; PPL_regularize returns the NHWC-y path lengths."""
     _, _, g = pair
     z = torch.zeros(1, g.config.style_dim)
-    with pytest.raises(NotImplementedError):
-        g([z], randomize_noise=False, return_style_scalars=True)
+    image, styles = g([z], randomize_noise=False, return_style_scalars=True)
+    ns = g.config.net_shape
+    assert image.shape == (1, 3, 32, 32)
+    assert [tuple(s.shape) for s in styles] == [(1, c) for c in ns[:-1]] + [(1, ns[-1])]
     image, lengths = g([z], randomize_noise=False, PPL_regularize=True,
                        generator=torch.Generator().manual_seed(0))
     assert image.shape == (1, 3, 32, 32) and lengths.shape == (1,)
