@@ -50,7 +50,8 @@ Phases, each of which exits non-zero on failure:
   8. run ``python -m content_aware_gan_compression_torch.train`` for 2
      iterations at 256px on a seeded uint8 cache with seeded aux-net files
      in the reference's schemas (torchvision VGG16, the LPIPS heads, a
-     79999_iter.pth BiSeNet), then resume it;
+     79999_iter.pth BiSeNet), then resume it with ``--dtype bfloat16
+     --opt_state_dtype bfloat16``;
   9. time the kernels against their bounds, their plain versions and one
      PyTorch library call each (blur4 at the generator's, the
      discriminator's and the student's largest shapes), the generator's
@@ -129,13 +130,27 @@ Phases, each of which exits non-zero on failure:
  24. ``python -m content_aware_gan_compression_torch.get_projected_image`` on
      a PNG written by ``write_png`` (read without Pillow where Pillow is
      absent): the printed scores and the side-by-side PNG.
+ 25. ``python -m content_aware_gan_compression_torch.bench`` with its
+     defaults (bfloat16, full_kd, 64 iterations after 33): its one JSON line.
+bfloat16, between phases 5 and 8: ``bf16_kernels_vs_plain`` (5b: the
+three kernels in bfloat16 against their plain versions, forward bit for bit
+at the generator's, the student's and D's shapes, backward and double
+backward to 2^-7 of the largest value, and their times against the bfloat16
+bytes bound), ``train_bf16_vs_float64`` (7b: phase 7's check of full_kd in
+bfloat16, card <= 2 x CPU + 1e-3) and ``train_rate_bf16`` (7c: the full_kd
+path in bfloat16 at 256px, iterations 0-4 with every launch a bfloat16 one
+and as many as ``train_phase_launches`` wants, no bfloat16 blur in the
+general ``upfirdn2d``; then train_rate's window with Adam's second moment in
+float32 and in bfloat16).
 The last lines are a {"kernels": [...]} JSON line, the card's name and power
-limit, and {"ok": true, "device": {...}}. Needs a CUDA card; without one it
+limit, and {"ok": true, "device": {...}}. Each phase's JSON line also goes to
+chiprun_out/chip_smoke_details.jsonl. Needs a CUDA card; without one it
 exits non-zero and prints no result.
 """
 
 import contextlib
 import copy
+import dataclasses
 import json
 import os
 import shutil
@@ -183,9 +198,18 @@ def card_line():
     return out.strip().splitlines()[0]
 
 
+DETAILS = os.path.join(REPO, "chiprun_out", "chip_smoke_details.jsonl")
+
+
 def detail(phase, **fields):
-    """One JSON line per phase, with the seconds since the script started."""
-    print(json.dumps({"phase": phase, "t": round(time.time() - START, 1), **fields}), flush=True)
+    """One JSON line per phase, with the seconds since the script started;
+    also appended to ``DETAILS`` (the end of standard output may be all a
+    caller keeps)."""
+    line = json.dumps({"phase": phase, "t": round(time.time() - START, 1), **fields})
+    print(line, flush=True)
+    os.makedirs(os.path.dirname(DETAILS), exist_ok=True)
+    with open(DETAILS, "a") as f:
+        f.write(line + "\n")
 
 
 def profile_kernels(fn, iters):
@@ -1605,10 +1629,20 @@ def projector_phases(g, dev, card, work):
     return launches
 
 
-def train_vs_float64(work, dev, objectives=("kd_l1", "full_kd")):
+def train_vs_float64(work, dev, objectives=("kd_l1", "full_kd"), compute_dtype="float32",
+                     slack=1e-4):
     """One iteration at 64px, batch 4, TF32 off, on the card and on the CPU,
     each held against the CPU in float64, per phase; fails on a phase where
     the card is further from float64 than the bound. Returns the distances.
+    ``compute_dtype`` is the card's and the CPU's steps' type (float64 runs
+    in float64 either way); ``slack`` the bound's constant term. In
+    bfloat16 a phase's distance is that of its whole gradient (|a - b| /
+    |b| over all parameters as one vector): the largest error of the worst
+    tensor is near 1 there on both devices, the noise of a few tensors
+    whose float64 gradient is small. (The CPU's bfloat16 convolution,
+    oneDNN's, takes R1's second order further from float64 than the same
+    runs without it, tests/test_torch_bf16_steps.py; without it the CPU
+    takes minutes here.)
 
     The path-length and R1 gradients are grads of grads, and fp32 rounds
     them by up to 1% on either device. So the card and the CPU, both in
@@ -1637,9 +1671,10 @@ def train_vs_float64(work, dev, objectives=("kd_l1", "full_kd")):
         # later phase would start from other weights; with lr 0 each phase
         # compares the same computation on the same weights
         cfg64 = train_config(64, 4, s_small, t_small, objective, init_lr=0.0)
+        cfg = dataclasses.replace(cfg64, compute_dtype=compute_dtype)
         aux = {"lpips_params": seeded_lpips(0.25).state_dict()} if objective == "full_kd" else {}
-        runs = {"cpu": Trainer(cfg64, device="cpu", **aux),
-                "card": Trainer(cfg64, device=dev, **aux),
+        runs = {"cpu": Trainer(cfg, device="cpu", **aux),
+                "card": Trainer(cfg, device=dev, **aux),
                 "f64": Trainer(cfg64, device="cpu", **aux)}
         for module in (runs["f64"].g, runs["f64"].d, runs["f64"].teacher, runs["f64"].lpips):
             if module is not None:
@@ -1664,7 +1699,8 @@ def train_vs_float64(work, dev, objectives=("kd_l1", "full_kd")):
                     parser64, parser64_seed, _ = pick_parser(img, width_scale=0.25)
                     continue
                 net = copy.deepcopy(parser64).to(tr.device, img.dtype)
-                maps[key] = batch_img_parsing(img, make_parse_fn(net, "NHWC"), "NHWC").cpu()
+                maps[key] = batch_img_parsing(img, make_parse_fn(net, "NHWC", tr.dtype),
+                                              "NHWC").cpu()
             agree = (maps["card"] == maps["f64"]).float().mean().item()
             for tr in runs.values():
                 tr.parser = FixedParse(maps["f64"]).to(tr.device)
@@ -1688,8 +1724,15 @@ def train_vs_float64(work, dev, objectives=("kd_l1", "full_kd")):
             losses = max(abs(v - results["f64"]["losses"][k])
                          / max(abs(results["f64"]["losses"][k]), 1e-6)
                          for k, v in results[key]["losses"].items())
-            grads = {ph: max(max_rel_err(results[key][ph][n], g)
-                             for n, g in results["f64"][ph].items()) for ph in trained}
+            if compute_dtype == "bfloat16":
+                grads = {ph: (sum(float((results[key][ph][n] - g).square().sum())
+                                  for n, g in results["f64"][ph].items())
+                              / sum(float(g.square().sum())
+                                    for g in results["f64"][ph].values())) ** 0.5
+                         for ph in trained}
+            else:
+                grads = {ph: max(max_rel_err(results[key][ph][n], g)
+                                 for n, g in results["f64"][ph].items()) for ph in trained}
             return {"losses": losses, **grads}
 
         cpu_err, card_err = distance("cpu"), distance("card")
@@ -1700,13 +1743,301 @@ def train_vs_float64(work, dev, objectives=("kd_l1", "full_kd")):
                 parse_agreement_card_vs_float64=agree, parser_seed=parser64_seed,
                 aux="LPIPS and BiSeNet widths scaled 0.25, seeded")
         bad = {k: (card_err[k], cpu_err[k]) for k in card_err
-               if not card_err[k] <= 2 * cpu_err[k] + 1e-4}
+               if not card_err[k] <= 2 * cpu_err[k] + slack}
         if bad:
-            fail(f"training ({objective}) on the card vs float64 on the CPU: {bad}")
+            fail(f"training ({objective}, {compute_dtype}) on the card vs float64 on the CPU: "
+                 f"{bad}")
         if objective == "full_kd" and not results["f64"]["losses"]["kd_lpips_loss"] > 0:
             fail("64px full_kd: the LPIPS term is 0")
         del runs, results
     return small_checks
+
+
+# -- bfloat16 --------------------------------------------------------------------
+
+BF16_EPS = 2.0 ** -7  # bfloat16's spacing in [1, 2)
+
+
+@contextlib.contextmanager
+def plain_routes():
+    """The three wrappers take their plain versions on the card too, inside
+    the same autograd Functions: the kernels' arithmetic swapped for the
+    plain one, the backward's structure kept. No launch is counted."""
+    import importlib
+
+    from content_aware_gan_compression_torch.ops.cuda import (
+        blur4_plain, fused_noise_bias_lrelu_plain, masked_scale_plain)
+
+    mods = [importlib.import_module(f"content_aware_gan_compression_torch.ops.cuda.{m}")
+            for m in ("blur4", "fused_noise_bias_lrelu", "masked_scale")]
+
+    def plain_ms(g, out):
+        return masked_scale_plain(g, out)
+    plain_ms.grad_copies = 0
+    saved = mods[0]._run, mods[1]._run, mods[2].masked_scale
+    mods[0]._run = lambda x, taps, pad, backward: blur4_plain(x, taps, pad)
+    mods[1]._run, mods[2].masked_scale = fused_noise_bias_lrelu_plain, plain_ms
+    try:
+        yield
+    finally:
+        mods[0]._run, mods[1]._run, mods[2].masked_scale = saved
+
+
+def f32_up(t):
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
+def grads_bf16(fn, args):
+    """``twin``'s d sum(f^3) and d ||d sum(f^3)||^2 for bfloat16: the cube
+    and the squares around ``fn`` run in float32, so that two functions
+    held against each other round only inside themselves."""
+    xs = [a.detach().clone().requires_grad_(a.requires_grad) for a in args]
+    wrt = [x for x in xs if x.requires_grad]
+    grads = torch.autograd.grad(f32_up(fn(*xs)).pow(3).sum(), wrt, create_graph=True)
+    second = torch.autograd.grad(sum(f32_up(t).pow(2).sum() for t in grads), wrt)
+    return [t.detach().float() for t in (*grads, *second)]
+
+
+def twin_bf16(grads_a, grads_b):
+    """The largest error of each gradient relative to ``grads_b``'s
+    largest value."""
+    return max(max_rel_err(a, b) for a, b in zip(grads_a, grads_b))
+
+
+def hold_bf16(blur_cases, fused_cases, ms_shapes, bw_blur_cases, epilogue_cases, rng):
+    """Each kernel in bfloat16 against its plain version on the card, on
+    bfloat16 inputs drawn from ``rng``. Forward: bit for bit (the kernels
+    round where the plain versions do, once per output), with blur4's
+    16-byte lanes where C % 8 == 0 and the view is aligned. Backward and
+    double backward to 2^-7 of the plain version's largest value: blur4
+    against autograd of its plain version; the epilogue against the same
+    Function under ``plain_routes``, because its backward sums the rounded
+    dx, as the JAX package's _bwd_vjp does, where autograd of the plain
+    expression sums the unrounded one (that distance is reported too).
+    Returns the largest errors."""
+    from content_aware_gan_compression_torch.ops import make_kernel
+    from content_aware_gan_compression_torch.ops.cuda import (
+        blur4, blur4_plain, correlation_taps, counts, fused_noise_bias_lrelu,
+        fused_noise_bias_lrelu_plain, masked_scale, masked_scale_plain, reset_counts)
+
+    bf, dev = torch.bfloat16, rng.device
+    k4 = make_kernel([1, 3, 3, 1])
+    reset_counts()
+    out = {"blur4": 0.0, "fused_noise_bias_lrelu": 0.0, "masked_scale": 0.0}
+    for shape, pad, gain, offset in blur_cases:
+        x = torch.randn(shape, generator=rng, device=dev).to(bf)
+        if offset:
+            x = misaligned(x)
+        got, want = blur4(x, k4, pad, gain), blur4_plain(x, correlation_taps(k4, gain), pad)
+        err = (got.float() - want.float()).abs().max().item()
+        if got.dtype != bf or got.shape != want.shape or err != 0.0:
+            fail(f"bf16 blur4 {shape} pad {pad}: max_abs_err {err}, want bit for bit")
+        out["blur4"] = max(out["blur4"], err)
+    c = counts()
+    want_vector = sum(s[3] % 8 == 0 and not offset for s, _, _, offset in blur_cases)
+    if (c["blur4_bf16"], c["blur4_vector_bf16"]) != (len(blur_cases), want_vector):
+        fail(f"bf16 blur4 launched {c}, want {len(blur_cases)} with {want_vector} 16-byte")
+    for shape, noise_batch in fused_cases:
+        x = torch.randn(shape, generator=rng, device=dev).to(bf)
+        noise = torch.randn((noise_batch, *shape[1:3], 1), generator=rng, device=dev).to(bf)
+        bias = (0.5 * torch.randn(shape[3], generator=rng, device=dev)).to(bf)
+        nw = torch.tensor([0.7], device=dev).to(bf)
+        got, want = (fused_noise_bias_lrelu(x, noise, bias, nw),
+                     fused_noise_bias_lrelu_plain(x, noise, bias, nw))
+        err = (got.float() - want.float()).abs().max().item()
+        if got.dtype != bf or err != 0.0:
+            fail(f"bf16 epilogue {shape}: max_abs_err {err}, want bit for bit")
+    for shape in ms_shapes:
+        g_in = torch.randn(shape, generator=rng, device=dev).to(bf)
+        o = torch.randn(shape, generator=rng, device=dev).to(bf)
+        o.view(-1)[:3] = 0.0
+        got, want = masked_scale(g_in, o), masked_scale_plain(g_in, o)
+        err = (got.float() - want.float()).abs().max().item()
+        if got.dtype != bf or err != 0.0:
+            fail(f"bf16 masked_scale {shape}: max_abs_err {err}, want bit for bit")
+    c = counts()
+    if (c["fused_noise_bias_lrelu_bf16"], c["masked_scale_bf16"]) != (len(fused_cases),
+                                                                      len(ms_shapes)):
+        fail(f"bf16 epilogue / masked_scale launches {c}")
+
+    k_asym = torch.arange(16, dtype=torch.float32).reshape(4, 4) / 120
+    bw = {"blur4": 0.0, "epilogue": 0.0, "epilogue_vs_autograd_of_plain": 0.0}
+    reset_counts()
+    for shape, pad, gain, offset in bw_blur_cases:
+        x = torch.randn(shape, generator=rng, device=dev).to(bf).requires_grad_(True)
+        view = misaligned if offset else (lambda t: t)
+        err = twin_bf16(grads_bf16(lambda x: blur4(view(x), k_asym, pad, gain), [x]), grads_bf16(
+            lambda x: blur4_plain(view(x), correlation_taps(k_asym, gain), pad), [x]))
+        if not err <= BF16_EPS:
+            fail(f"bf16 blur4 backward {shape} pad {pad}: relative error {err} > 2^-7")
+        bw["blur4"] = max(bw["blur4"], err)
+    for shape, noise_batch, noise_grad in epilogue_cases:
+        args = [torch.randn(shape, generator=rng, device=dev).to(bf),
+                torch.randn((noise_batch, *shape[1:3], 1), generator=rng, device=dev).to(bf),
+                (0.5 * torch.randn(shape[3], generator=rng, device=dev)).to(bf),
+                torch.tensor([0.7], device=dev).to(bf)]
+        for i, a in enumerate(args):
+            a.requires_grad_(i != 1 or noise_grad)
+        with plain_routes():
+            plain = grads_bf16(fused_noise_bias_lrelu, args)
+        kernel = grads_bf16(fused_noise_bias_lrelu, args)
+        err = twin_bf16(kernel, plain)
+        if not err <= BF16_EPS:
+            fail(f"bf16 epilogue backward {shape}, noise batch {noise_batch}, noise gradient "
+                 f"{noise_grad}: relative error {err} > 2^-7")
+        bw["epilogue"] = max(bw["epilogue"], err)
+        bw["epilogue_vs_autograd_of_plain"] = max(
+            bw["epilogue_vs_autograd_of_plain"],
+            twin_bf16(kernel, grads_bf16(fused_noise_bias_lrelu_plain, args)))
+    torch.cuda.synchronize()
+    c = counts()
+    if (c["blur4_backward_bf16"] < 2 * len(bw_blur_cases)
+            or c["masked_scale_bf16"] < 2 * len(epilogue_cases)):
+        fail(f"the bf16 backward checks did not go through the kernels: {c}")
+    return out, bw
+
+
+def bf16_times(rng, blur_shape, fused_shape, ms_shape):
+    """The bfloat16 kernels' ms against their bytes bounds, their plain
+    versions and, where one exists, one PyTorch call: F.conv2d depthwise on
+    the channels-last bfloat16 view for blur4, aten.leaky_relu_backward in
+    bfloat16 for masked_scale."""
+    from content_aware_gan_compression_torch.bench_blur4 import blur4_bound, bound, time_ms
+    from content_aware_gan_compression_torch.ops import make_kernel
+    from content_aware_gan_compression_torch.ops.cuda import (
+        blur4, blur4_plain, correlation_taps, fused_noise_bias_lrelu,
+        fused_noise_bias_lrelu_plain, masked_scale, masked_scale_plain)
+
+    bf, dev = torch.bfloat16, rng.device
+    k4, gain, pad = make_kernel([1, 3, 3, 1]), 4.0, (1, 1)
+    x = torch.randn(blur_shape, generator=rng, device=dev).to(bf)
+    taps, c = correlation_taps(k4, gain), blur_shape[3]
+    w_dw = (k4 * gain).flip(0, 1).reshape(1, 1, 4, 4).repeat(c, 1, 1, 1).to(dev, bf)
+    x_nchw = x.permute(0, 3, 1, 2)
+    t_bound, t_by = blur4_bound(blur_shape, pad, itemsize=2)
+    times = {"blur4": {
+        "shape": list(blur_shape), "pad": list(pad), "ms": time_ms(lambda: blur4(x, k4, pad, gain)),
+        "plain_ms": time_ms(lambda: blur4_plain(x, taps, pad), iters=5),
+        "bound_ms": t_bound, "bound_by": t_by,
+        "library_ms": time_ms(lambda: torch.nn.functional.conv2d(x_nchw, w_dw, padding=pad[0],
+                                                                 groups=c))}}
+    del x, x_nchw
+    x = torch.randn(fused_shape, generator=rng, device=dev).to(bf)
+    noise = torch.randn((*fused_shape[:3], 1), generator=rng, device=dev).to(bf)
+    bias = (0.5 * torch.randn(fused_shape[3], generator=rng, device=dev)).to(bf)
+    nw = torch.tensor([0.7], device=dev).to(bf)
+    negatives = int((fused_noise_bias_lrelu_plain(x, noise, bias, nw) < 0).sum().item())
+    f_bound, f_by = bound(2 * (2 * x.numel() + noise.numel() + fused_shape[3]),
+                          3 * x.numel() + negatives + noise.numel())
+    times["fused_noise_bias_lrelu"] = {
+        "shape": list(fused_shape), "ms": time_ms(lambda: fused_noise_bias_lrelu(x, noise, bias, nw)),
+        "plain_ms": time_ms(lambda: fused_noise_bias_lrelu_plain(x, noise, bias, nw), iters=5),
+        "bound_ms": f_bound, "bound_by": f_by, "library_ms": None}
+    del x, noise
+    g_in = torch.randn(ms_shape, generator=rng, device=dev).to(bf)
+    o = torch.randn(ms_shape, generator=rng, device=dev).to(bf)
+    negatives = int((o < 0).sum().item())
+    m_bound, m_by = bound(6 * o.numel(), 2 * o.numel() + negatives)
+    times["masked_scale"] = {
+        "shape": list(ms_shape), "ms": time_ms(lambda: masked_scale(g_in, o)),
+        "plain_ms": time_ms(lambda: masked_scale_plain(g_in, o), iters=5),
+        "bound_ms": m_bound, "bound_by": m_by,
+        "library_ms": time_ms(lambda: torch.ops.aten.leaky_relu_backward(g_in, o, 0.2, True))}
+    for t in times.values():
+        t["bound_share"] = t["bound_ms"] / t["ms"]
+    return times
+
+
+@contextlib.contextmanager
+def no_general_blurs(dtype):
+    """Records every call of the general upfirdn2d that is a plain blur (up
+    and down 1) on a CUDA tensor of ``dtype``: blur4 should have taken it.
+    The ToRGB skip's upsample (up 2) is not a blur4 case."""
+    import importlib
+
+    mod = importlib.import_module("content_aware_gan_compression_torch.ops.upfirdn2d")
+    orig, seen = mod.upfirdn2d, []
+
+    def recording(x, kernel, up=1, down=1, pad=(0, 0), data_format="NHWC"):
+        if (x.is_cuda and x.dtype == dtype and up in (1, (1, 1))
+                and down in (1, (1, 1))):
+            seen.append((tuple(x.shape), tuple(pad)))
+        return orig(x, kernel, up, down, pad, data_format)
+    mod.upfirdn2d = recording
+    try:
+        yield seen
+    finally:
+        mod.upfirdn2d = orig
+
+
+def bf16_train_phases(student, teacher, parser, reals, want_phase, dev):
+    """The bfloat16 retraining path: full_kd at 256px with the 11x student,
+    batch 16, path batch 8, as train_rate runs it. With opt_state_dtype
+    float32: iterations 0-4 with per-phase launches, every one of them a
+    bfloat16 launch and as many as train_phase_launches wants, and no bf16
+    blur in the general upfirdn2d; then, for opt_state_dtype float32 and
+    bfloat16, the train_rate window (it/s, kernel ms, busy share, peak
+    memory) under PyTorch's defaults. Returns (launches, rates)."""
+    from content_aware_gan_compression_torch.ops.cuda import reset_counts
+    from content_aware_gan_compression_torch.train import Trainer
+
+    torch.backends.cudnn.allow_tf32 = True
+    launches, rates = None, {}
+    for sd in ("float32", "bfloat16"):
+        tr = Trainer(train_config(SIZE, BATCH, student, teacher, "full_kd",
+                                  compute_dtype="bfloat16", opt_state_dtype=sd),
+                     device=dev, lpips_params=seeded_lpips(), parse_params=parser)
+        mpl = torch.zeros((), device=dev)
+        if launches is None:
+            phases = []
+            reset_counts()
+            with no_general_blurs(torch.bfloat16) as general:
+                for it in range(5):
+                    m, mpl = tr.step(it, reals[it % 4], mpl, phase_hook=phase_counter(phases))
+                torch.cuda.synchronize()
+            if general:
+                fail(f"bf16 blurs reached the general upfirdn2d on the card: {general[:4]}")
+            if not all(np.isfinite(v.item()) for v in m.values()):
+                fail(f"a bf16 training loss is not finite: {m}")
+            launches = {}
+            for name, c in phases:
+                want = dict(want_phase[name])
+                got = {k: c[k] for k in want}
+                got_bf16 = {k: c[f"{k}_bf16"] for k in want}
+                if got != want or got_bf16 != want:
+                    fail(f"bf16 train phase {name} launched {got} ({got_bf16} in bf16), "
+                         f"want {want}, all bf16")
+                for k, v in c.items():
+                    launches[k] = launches.get(k, 0) + v
+            for need in ("d_reg", "g", "g_reg"):
+                if not any(n == need for n, _ in phases):
+                    fail(f"bf16 phase {need} did not run")
+        rates[f"opt_state_{sd}"], _ = train_window(tr, reals, mpl)
+        nu = next(iter(tr.g_opt.state.values()))["exp_avg_sq"]
+        rates[f"opt_state_{sd}"]["nu_dtype"] = str(nu.dtype)
+        del tr
+        torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.backends.cudnn.allow_tf32 = False
+    return launches, rates
+
+
+def run_bench():
+    """``python -m content_aware_gan_compression_torch.bench`` with its
+    defaults in a subprocess: its one JSON line, checked for bench.py's keys
+    and the full objective."""
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", "content_aware_gan_compression_torch.bench"],
+                          cwd=REPO, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        fail(f"bench rc {proc.returncode}: {proc.stderr[-3000:]}")
+    lines = proc.stdout.strip().splitlines()
+    out = json.loads(lines[-1]) if lines else {}
+    keys = {"metric", "value", "unit", "vs_baseline", "mfu", "objective"}
+    if (len(lines) != 1 or set(out) != keys or out["objective"] != "full_kd"
+            or out["metric"] != "retrain_iters_per_sec" or not out["value"] > 0):
+        fail(f"bench printed {proc.stdout[-2000:]}")
+    return out, time.time() - t0
 
 
 def main():
@@ -1726,6 +2057,8 @@ def main():
     from content_aware_gan_compression_torch.utils import save_checkpoint
 
     dev = torch.device("cuda")
+    if os.path.exists(DETAILS):
+        os.remove(DETAILS)
     card = card_line()
     print(card, flush=True)
     print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
@@ -1872,6 +2205,36 @@ def main():
            launches=counts(),
            tolerance="1e-5 of the plain version's largest value, first and second order")
 
+    # -- 5b. the kernels in bfloat16 against their plain versions ---------------
+    # G's and the student's up-blurs, D's blurs and a misaligned view; the
+    # epilogue at the generator's and the student's shapes; masked_scale at
+    # the student's (the largest [16,256,256,39]); backward and double
+    # backward at the student's blurs, D's and a misaligned view, and the
+    # epilogue at the student's shapes, with the noise gradient (per-sample
+    # and broadcast) at the three largest
+    bf16_blur_cases = [(s, (1, 1), 4.0, False) for s in blur_shapes + student_blur_shapes(BATCH)] \
+        + [(shape, pad, 1.0, False) for shape, pad in discriminator_blur_cases()] \
+        + [((BATCH, 129, 129, 154), (1, 1), 4.0, True)]
+    bf16_fused_cases = [(s, s[0]) for s in fused_shapes + student_epilogue_shapes(BATCH)]
+    bf16_bw_blur = [(s, (1, 1), 4.0, False) for s in student_blur_shapes(BATCH)] + [
+        (shape, pad, 1.0, False) for shape, pad in discriminator_blur_cases()] + [
+        ((PATH_BATCH, 129, 129, 77), (2, 2), 1.0, True)]
+    bf16_epilogue = [(s, s[0], False) for s in student_epilogue_shapes(BATCH)] + [
+        (s, nb, True) for s in student_epilogue_shapes(BATCH)[-3:] for nb in (BATCH, 1)]
+    t0 = time.time()
+    bf16_err, bf16_bw = hold_bf16(bf16_blur_cases, bf16_fused_cases,
+                                  student_epilogue_shapes(BATCH), bf16_bw_blur, bf16_epilogue, rng)
+    bf16_kernel_times = bf16_times(rng, blur_shapes[-1], fused_shapes[-1],
+                                   (BATCH, SIZE, SIZE, STUDENT_SHAPE[-1]))
+    detail("bf16_kernels_vs_plain", seconds=round(time.time() - t0, 1),
+           blur4_cases=len(bf16_blur_cases), epilogue_cases=len(bf16_fused_cases),
+           masked_scale_cases=len(student_epilogue_shapes(BATCH)), max_abs_err=bf16_err,
+           backward_cases={"blur4": len(bf16_bw_blur), "epilogue": len(bf16_epilogue)},
+           backward_max_rel_err=bf16_bw, times=bf16_kernel_times, card=card,
+           tolerance="forward bit for bit; backward and double backward 2^-7 of the plain "
+                     "version's largest value (the epilogue against its Function under "
+                     "plain_routes; epilogue_vs_autograd_of_plain reported, not held)")
+
     # -- 6. the retraining path at 256px: 11x student, full teacher and D -----
     work = os.path.join(REPO, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
@@ -1929,6 +2292,28 @@ def main():
            measure="largest |a-b| / max|float64| over each phase's parameter tensors",
            tolerance="card <= 2 * cpu + 1e-4, per phase and for the losses")
 
+    # -- 7b. one bfloat16 iteration at 64px against float64 ----------------------
+    t0 = time.time()
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                     allow_tf32=False):
+        bf16_checks = train_vs_float64(work, dev, ("full_kd",), "bfloat16", 1e-3)
+    detail("train_bf16_vs_float64", size=64, batch=4, tf32=False, lr=0.0, compute_dtype="bfloat16",
+           cudnn_deterministic=True, seconds=round(time.time() - t0, 1), **bf16_checks,
+           measure="|a-b| / |float64| over each phase's parameter gradients as one vector",
+           tolerance="card <= 2 * cpu + 1e-3, per phase and for the losses")
+
+    # -- 7c. the bfloat16 retraining path at 256px and its rate ------------------
+    t0 = time.time()
+    bf16_launches, bf16_rates = bf16_train_phases(student, teacher, parser, reals, want_phase,
+                                                  dev)
+    detail("train_rate_bf16", size=SIZE, batch=BATCH, path_batch=PATH_BATCH,
+           compute_dtype="bfloat16", objective="full_kd", seconds=round(time.time() - t0, 1),
+           launches=bf16_launches, per_phase_want={k: want_phase[k] for k in want_phase},
+           **bf16_rates, window="iterations 16-31 as train_rate's full_kd window",
+           note="PyTorch's defaults (cuDNN TF32 on, matmul TF32 off); full-width seeded "
+                "LPIPS-VGG16 and BiSeNet; launches from iterations 0-4, opt_state float32, "
+                "every one a bf16 launch")
+
     # -- 8. the train CLI: two iterations, then a resume, full objective ------
     cache = os.path.join(work, "ffhq256_seeded.npy")
     np.save(cache, np.random.RandomState(2).randint(0, 256, (32, SIZE, SIZE, 3), dtype=np.uint8))
@@ -1939,8 +2324,11 @@ def main():
             "--lpips_vgg_ckpt", vgg_file, "--lpips_lins_ckpt", lins_file,
             "--parsing_ckpt", parsing_file]
     cli = {}
+    # the resume runs in bf16 with nu stored in bf16, from the float32 run's
+    # checkpoint: `train --dtype bfloat16` on the card
     for label, extra in (("train", ["--ckpt", student, "--iter", "2"]),
-                         ("resume", ["--load_train_state", "True", "--iter", "3"])):
+                         ("resume", ["--load_train_state", "True", "--iter", "3", "--dtype",
+                                     "bfloat16", "--opt_state_dtype", "bfloat16"])):
         root = os.path.join(work, f"cli_{label}")
         if label == "resume":
             extra = ["--ckpt", os.path.join(cli["train"]["exp"], "ckpt", "000001.npz"), *extra]
@@ -1956,6 +2344,8 @@ def main():
                       "iters": [r["iter"] for r in recs],
                       "kd_lpips_loss": [r["kd_lpips_loss"] for r in recs],
                       "warnings": [ln for ln in proc.stdout.splitlines() if "WARNING" in ln],
+                      "dtype": [ln.strip() for ln in proc.stdout.splitlines()
+                                if "Compute dtype" in ln],
                       "finite": all(np.isfinite(v) for r in recs for v in r.values()),
                       "samples": sorted(os.listdir(os.path.join(exp, "sample"))),
                       "ckpts": sorted(os.listdir(os.path.join(exp, "ckpt")))}
@@ -1967,7 +2357,8 @@ def main():
             or "000001.png" not in cli["train"]["samples"]
             or "000002.npz" not in cli["resume"]["ckpts"]
             or not all(v > 0 for c in cli.values() for v in c["kd_lpips_loss"])
-            or any(c["warnings"] for c in cli.values())):
+            or any(c["warnings"] for c in cli.values())
+            or cli["resume"]["dtype"] != ["Compute dtype: bfloat16"]):
         fail(f"train CLI: {cli}")
     with open(next(os.path.join(cli["train"]["exp"], f) for f in os.listdir(cli["train"]["exp"])
                    if f.endswith("_training_log.out"))) as f:
@@ -2106,6 +2497,10 @@ def main():
     sparsity_counts = sparsity_phases(g, dev, card, os.path.join(REPO, "build", "chip_smoke"))
     projector_counts = projector_phases(g, dev, card, os.path.join(REPO, "build", "chip_smoke"))
 
+    # -- 25. the port's bench, bfloat16 by default --------------------------------
+    bench_line, bench_s = run_bench()
+    detail("bench", seconds=round(bench_s, 1), card=card, line=bench_line)
+
     def new_paths(name, vector=False):
         """The kernels line's launches of ``name`` on the sparsity and
         projector paths (blur4: forward + backward)."""
@@ -2166,6 +2561,28 @@ def main():
          "library_ms": ms_lib_ms, "library": "aten.leaky_relu_backward (no sqrt(2), mask > 0)",
          "shape": list(m_shape)},
     ]
+    # the bfloat16 forms: launches from the bfloat16 retraining path
+    # (train_rate_bf16, iterations 0-4), errors and times from
+    # bf16_kernels_vs_plain
+    bf16_entry = {
+        "blur4": {"launches": bf16_launches["blur4_bf16"] + bf16_launches["blur4_backward_bf16"],
+                  "launches_forward": bf16_launches["blur4_bf16"],
+                  "launches_backward": bf16_launches["blur4_backward_bf16"],
+                  "vector_launches": bf16_launches["blur4_vector_bf16"],
+                  "max_rel_err_backward": bf16_bw["blur4"]},
+        "fused_noise_bias_lrelu": {
+            "launches": bf16_launches["fused_noise_bias_lrelu_bf16"],
+            "max_rel_err_backward": bf16_bw["epilogue"],
+            "max_rel_err_backward_vs_autograd_of_plain": bf16_bw["epilogue_vs_autograd_of_plain"]},
+        "masked_scale": {"launches": bf16_launches["masked_scale_bf16"]}}
+    for entry in list(kernels):
+        name = entry["name"]
+        t = bf16_kernel_times[name]
+        kernels.append({"name": f"{name}_bf16", "route": "cuda", "source": entry["source"],
+                        "replaces": entry["replaces"], **bf16_entry[name],
+                        "max_abs_err": bf16_err[name],
+                        **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                             "library_ms", "shape")}})
     detail("done", seconds=round(time.time() - t_start, 1))
     print(json.dumps({"kernels": kernels}))
     print(card_line())

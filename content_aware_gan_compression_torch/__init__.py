@@ -15,8 +15,9 @@ PPL, in the loop and from their CLIs (``calc_inception``, ``get_fid``,
 with its CLI (``prune``); the GAN-Slimming sparsity baseline with
 in-training pruning (``train_sparsity``); the image projector with optax's
 L-BFGS or Adam (``get_projected_image``); the FLOPs calculators and the log
-analysis. Entry points run on ``cuda`` unless the caller passes
-``device="cpu"``.
+analysis; bf16 compute for retraining (``--dtype bfloat16``) with bf16
+forms of the three kernels, and the retraining benchmark (``bench``). Entry
+points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

@@ -57,12 +57,13 @@ def in_bounds_taps(n_in, n_out, p0):
     return sum(1 for o in range(n_out) for d in range(4) if 0 <= o + d - p0 < n_in)
 
 
-def blur4_bound(shape, pad):
-    """blur4's bound: the input read once and the output written once, or the
-    multiply-adds of the taps that land inside the input."""
+def blur4_bound(shape, pad, itemsize=4):
+    """blur4's bound: the input read once and the output written once
+    (``itemsize`` bytes per element: 4 float32, 2 bfloat16), or the
+    float32 multiply-adds of the taps that land inside the input."""
     b, h, w, c = shape
     ho, wo = h + sum(pad) - 3, w + sum(pad) - 3
-    return bound(4 * b * c * (h * w + ho * wo),
+    return bound(itemsize * b * c * (h * w + ho * wo),
                  2 * b * c * in_bounds_taps(h, ho, pad[0]) * in_bounds_taps(w, wo, pad[0]))
 
 

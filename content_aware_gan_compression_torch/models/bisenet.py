@@ -41,7 +41,7 @@ class Conv(nn.Module):
         self.stride, self.padding = stride, padding
 
     def forward(self, x):
-        return F.conv2d(x, self.weight, stride=self.stride, padding=self.padding)
+        return F.conv2d(x, self.weight.to(x.dtype), stride=self.stride, padding=self.padding)
 
 
 class FoldedBatchNorm(nn.Module):
@@ -221,10 +221,13 @@ class BiSeNet(nn.Module):
         return tuple(outs)
 
 
-def make_parse_fn(net: BiSeNet, data_format: str = "NCHW"):
-    """Head-0 logits in float32, for ``pruning.content_aware.batch_img_parsing``."""
+def make_parse_fn(net: BiSeNet, data_format: str = "NCHW", dtype=None):
+    """Head-0 logits in float32, for ``pruning.content_aware.batch_img_parsing``;
+    the net runs in ``dtype`` (the input's type if None), as the JAX
+    training step's parse_fn."""
     def parse_fn(normalized):
-        return net(normalized, data_format=data_format, heads=1)[0].float()
+        x = normalized if dtype is None else normalized.to(dtype)
+        return net(x, data_format=data_format, heads=1)[0].float()
     return parse_fn
 
 

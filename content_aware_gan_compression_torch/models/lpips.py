@@ -92,7 +92,7 @@ class VGG16Features(nn.Module):
                 seq += 1
                 continue
             conv = getattr(self, str(seq))
-            x = torch.relu(F.conv2d(x, conv.weight, conv.bias, padding=1))
+            x = torch.relu(F.conv2d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype), padding=1))
             seq += 2
             if seq - 1 in SLICE_ENDS:
                 feats.append(x)
@@ -119,12 +119,18 @@ class LPIPS(nn.Module):
         self.to(device)
 
     def forward(self, in0, in1, *, normalize: bool = False, spatial: bool = False,
-                ret_per_layer: bool = False, data_format: str = "NCHW"):
+                ret_per_layer: bool = False, data_format: str = "NCHW", dtype=None):
         """LPIPS(in0, in1) for images in [-1, 1] (or [0, 1] with
         ``normalize``), NCHW or NHWC. Returns [N, 1, 1, 1] as the reference,
         and the per-layer values with ``ret_per_layer``. ``spatial`` keeps
         each layer's map ([N, 1, H, W]) instead of its mean; as in the JAX
         function, summing the maps needs them to share a size.
+
+        ``dtype`` is the VGG trunk's compute type (e.g. torch.bfloat16), as
+        the JAX ``lpips_apply``: the scaling layer runs in the inputs' type
+        before the cast, and the heads (unit-normalize, squared difference,
+        calibration sum) in float32 after it. None keeps the inputs' type
+        throughout.
 
         An input that does not require grad, through frozen weights, builds
         no graph: the teacher's branch of the KD loss costs a forward only."""
@@ -133,10 +139,14 @@ class LPIPS(nn.Module):
             x0, x1 = 2 * x0 - 1, 2 * x1 - 1
         shift = torch.tensor(SHIFT, dtype=x0.dtype, device=x0.device).reshape(1, 3, 1, 1)
         scale = torch.tensor(SCALE, dtype=x0.dtype, device=x0.device).reshape(1, 3, 1, 1)
-        f0 = self.vgg((x0 - shift) / scale)
-        f1 = self.vgg((x1 - shift) / scale)
+        x0, x1 = (x0 - shift) / scale, (x1 - shift) / scale
+        if dtype is not None:
+            x0, x1 = x0.to(dtype), x1.to(dtype)
+        f0, f1 = self.vgg(x0), self.vgg(x1)
         res = []
         for a, b, lin in zip(f0, f1, self.lins):
+            if dtype is not None:
+                a, b = a.float(), b.float()
             # unit-normalize over channels, eps outside the sqrt; the heads
             # are 1x1 convs without bias
             na = a / (torch.sqrt(torch.sum(torch.square(a), dim=1, keepdim=True)) + 1e-10)

@@ -18,6 +18,12 @@ the output, instead of the reference's per-sample grouped convolutions.
 
 Net widths are data: ``net_shape`` lists the per-layer channel counts, so a
 pruned (non-uniform) generator is a config with another tuple.
+
+``dtype`` (``Generator.forward``, ``Discriminator.forward``) is the compute
+type of the activations, e.g. ``torch.bfloat16``, at the JAX package's cast
+points: parameters stay float32 and each layer casts its weights to the
+activations' type where it uses them; demodulation's sigma is computed in
+float32 and cast. None keeps the input's type.
 """
 
 from __future__ import annotations
@@ -144,10 +150,10 @@ class EqualLinear(nn.Module):
         self.activation = activation
 
     def forward(self, x):
-        out = F.linear(x, self.weight * self.scale)
+        out = F.linear(x, (self.weight * self.scale).to(x.dtype))
         if self.activation == "fused_lrelu":
             return fused_leaky_relu(out, self.bias * self.lr_mul)
-        return out + self.bias * self.lr_mul
+        return out + (self.bias * self.lr_mul).to(out.dtype)
 
 
 class ModulatedConv2d(nn.Module):
@@ -177,8 +183,8 @@ class ModulatedConv2d(nn.Module):
         w = self.weight[0]  # [out, in, k, k]
         k = w.shape[-1]
         s = self.modulation(style)  # [B, in]
-        xs = (x * s[:, None, None, :]).permute(0, 3, 1, 2)  # channels-last view
-        ws = w * self.scale
+        xs = (x * s[:, None, None, :].to(x.dtype)).permute(0, 3, 1, 2)  # channels-last view
+        ws = (w * self.scale).to(x.dtype)
         if self.upsample:
             out = _to_nhwc(F.conv_transpose2d(xs, ws.transpose(0, 1), stride=2))
         else:
@@ -222,9 +228,11 @@ class StyledConv(nn.Module):
 
     def forward(self, x, style, noise):
         """noise: [B or 1, H, W, 1] at the output resolution. Returns (the
-        output, the modulation scalars [B, in])."""
+        output, the modulation scalars [B, in]). The noise, bias and noise
+        weight are cast to the output's type."""
         out, s = self.conv(x, style)
-        return fused_noise_bias_lrelu(out, noise, self.activate.bias, self.noise.weight), s
+        return fused_noise_bias_lrelu(out, noise.to(out.dtype), self.activate.bias.to(out.dtype),
+                                      self.noise.weight.to(out.dtype)), s
 
 
 class ToRGB(nn.Module):
@@ -241,7 +249,7 @@ class ToRGB(nn.Module):
     def forward(self, x, style, skip=None):
         """Returns (the output, the modulation scalars [B, in])."""
         out, s = self.conv(x, style)
-        out = out + self.bias.permute(0, 2, 3, 1)
+        out = out + self.bias.permute(0, 2, 3, 1).to(out.dtype)
         if skip is not None:
             out = out + upsample_2d(skip, self.kernel)
         return out, s
@@ -301,9 +309,10 @@ class Generator(nn.Module):
 
     # -- latents and noise --------------------------------------------------
 
-    def get_latent(self, z):
-        """z -> W (reference Generator.get_latent, model.py:542-543)."""
-        return self.style(z)
+    def get_latent(self, z, dtype=None):
+        """z -> W (reference Generator.get_latent, model.py:542-543), the
+        mapping MLP in ``dtype`` (z's type if None)."""
+        return self.style(z if dtype is None else z.to(dtype))
 
     def mean_latent(self, n_latent: int, generator=None):
         """Mean W over ``n_latent`` z drawn from ``generator`` (on this
@@ -378,16 +387,20 @@ class Generator(nn.Module):
 
     # -- forward ------------------------------------------------------------
 
-    def synthesis(self, latent, noise):
+    def synthesis(self, latent, noise, dtype=None):
         """W+ latent [B, n_latent, D] + per-layer noise -> (NHWC image, list
         of per-scale NHWC rgb skips, list of modulation scalars) (reference
         model.py:612-646). The scalars [B, in] are those of conv1, of every
         StyledConv and of the last ToRGB only (reference model.py:637-639;
-        the JAX package's ``last_rgb_scalars``)."""
+        the JAX package's ``last_rgb_scalars``). ``dtype`` casts the
+        constant input and the latent."""
         batch = latent.shape[0]
         # the one layout copy of the forward: the [1, C, 4, 4] constant to
         # NHWC (16*C floats), so that x * s below comes out NHWC-contiguous
-        x = self.input.input.permute(0, 2, 3, 1).contiguous().expand(batch, -1, -1, -1)
+        x = self.input.input.permute(0, 2, 3, 1).contiguous()
+        if dtype is not None:
+            x, latent = x.to(dtype), latent.to(dtype)
+        x = x.expand(batch, -1, -1, -1)
         x, s = self.conv1(x, latent[:, 0], noise[0])
         styles = [s]
         skip, _ = self.to_rgb1(x, latent[:, 1])
@@ -409,7 +422,7 @@ class Generator(nn.Module):
                 randomize_noise: bool = True, generator=None,
                 return_latents: bool = False, return_rgb_list: bool = False,
                 return_style_scalars: bool = False, PPL_regularize: bool = False,
-                ppl_noise=None, output_format: str = "NCHW"):
+                ppl_noise=None, output_format: str = "NCHW", dtype=None):
         """Generator forward (the JAX package's generator_apply).
 
         Args:
@@ -431,6 +444,10 @@ class Generator(nn.Module):
             ``generator`` when not given.
           output_format: "NCHW" (the reference's) or "NHWC", the synthesis's
             own layout, which the discriminator and the losses take as it is.
+          dtype: the compute type of the activations (e.g. torch.bfloat16):
+            the mapping MLP, the noise maps, ``y`` and the synthesis run in
+            it; the path lengths are computed in float32. None keeps
+            float32.
 
         Returns images (a list per scale with ``return_rgb_list``), as
         ``(images, styles)`` with ``return_style_scalars`` (the modulation
@@ -443,7 +460,7 @@ class Generator(nn.Module):
                   else (lambda t: t.permute(0, 3, 1, 2)))
         cfg = self.config
         if not input_is_latent:
-            styles = [self.get_latent(z) for z in styles]
+            styles = [self.get_latent(z, dtype) for z in styles]
         elif not isinstance(styles, (list, tuple)):
             styles = [styles]
 
@@ -454,6 +471,8 @@ class Generator(nn.Module):
                 noise = self.make_noise(styles[0].shape[0], generator)
             else:
                 noise = self._noise_buffers_nhwc()
+        if dtype is not None:
+            noise = [n.to(dtype) for n in noise]
 
         # truncation trick (reference model.py:583-591)
         if truncation is not None and not (
@@ -478,17 +497,17 @@ class Generator(nn.Module):
         if PPL_regularize:
             if not latent.requires_grad:  # W given as a plain tensor
                 latent = latent.detach().requires_grad_(True)
-            image, _, _ = self.synthesis(latent, noise)
+            image, _, _ = self.synthesis(latent, noise, dtype)
             if ppl_noise is None:
                 if generator is None:
                     raise ValueError("PPL_regularize without ppl_noise requires generator")
                 ppl_noise = torch.randn(image.shape, generator=generator, device=image.device)
-            y = ppl_noise / math.sqrt(image.shape[1] * image.shape[2])
+            y = ppl_noise.to(image.dtype) / math.sqrt(image.shape[1] * image.shape[2])
             (grad,) = torch.autograd.grad(image, latent, y, create_graph=True)
             path_lengths = torch.sqrt(torch.square(grad.float()).sum(2).mean(1))
             return to_out(image), path_lengths
 
-        image, rgb_list, styles = self.synthesis(latent, noise)
+        image, rgb_list, styles = self.synthesis(latent, noise, dtype)
         if return_rgb_list:
             out = [to_out(r) for r in rgb_list]
         else:
@@ -552,7 +571,7 @@ class EqualConv2d(nn.Module):
         self.padding = padding
 
     def forward(self, x):
-        return _to_nhwc(F.conv2d(x.permute(0, 3, 1, 2), self.weight * self.scale,
+        return _to_nhwc(F.conv2d(x.permute(0, 3, 1, 2), (self.weight * self.scale).to(x.dtype),
                                  stride=self.stride, padding=self.padding))
 
 
@@ -605,7 +624,11 @@ class ResBlock(nn.Module):
                               blur_kernel=blur_kernel, generator=generator)
 
     def forward(self, x):
-        return (self.conv2(self.conv1(x)) + self.skip(x)) / math.sqrt(2)
+        # the sum and the scale in float32 at least, rounded once (as in
+        # fused_leaky_relu: XLA's fusion of the JAX package's bfloat16 chain)
+        out = self.conv2(self.conv1(x))
+        acc = torch.promote_types(out.dtype, torch.float32)
+        return ((out.to(acc) + self.skip(x).to(acc)) / math.sqrt(2)).to(out.dtype)
 
 
 def minibatch_stddev(x_nhwc, group_size: int, stddev_feat: int):
@@ -650,9 +673,10 @@ class Discriminator(nn.Module):
             EqualLinear(ch[4], 1, generator=g))
         self.to(device)
 
-    def forward(self, image_nhwc):
-        """[B, H, W, 3] -> scores [B, 1]."""
-        x = image_nhwc
+    def forward(self, image_nhwc, dtype=None):
+        """[B, H, W, 3] -> scores [B, 1], computed in ``dtype`` (the image's
+        type if None)."""
+        x = image_nhwc if dtype is None else image_nhwc.to(dtype)
         for conv in self.convs:
             x = conv(x)
         x = minibatch_stddev(x, self.config.stddev_group, self.config.stddev_feat)

@@ -9,7 +9,10 @@ Launch counts, so a run can show that its path went through the kernels:
 ``blur4.launches`` (forward) and ``blur4.backward_launches`` (made by
 autograd's backward), ``blur4.vector_launches`` (those of either with
 ``float4`` lanes), ``fused_noise_bias_lrelu.launches`` and
-``masked_scale.launches`` (the epilogue's backward, of any order).
+``masked_scale.launches`` (the epilogue's backward, of any order), each
+counting launches of any type; ``bf16_launches`` (and blur4's
+``bf16_backward_launches`` and ``bf16_vector_launches``) count those on
+bfloat16 tensors among them.
 ``blur4.grad_copies`` and ``masked_scale.grad_copies`` count gradients that
 arrived non-contiguous and were copied before a launch. Kernels build at
 first use (``build.py``); the build raises if it fails.
@@ -25,8 +28,9 @@ from .masked_scale import MaskedScaleFn, masked_scale, masked_scale_plain
 def reset_counts() -> None:
     """Set every launch and copy count to 0."""
     blur4.launches = blur4.backward_launches = blur4.vector_launches = blur4.grad_copies = 0
-    fused_noise_bias_lrelu.launches = 0
-    masked_scale.launches = masked_scale.grad_copies = 0
+    blur4.bf16_launches = blur4.bf16_backward_launches = blur4.bf16_vector_launches = 0
+    fused_noise_bias_lrelu.launches = fused_noise_bias_lrelu.bf16_launches = 0
+    masked_scale.launches = masked_scale.bf16_launches = masked_scale.grad_copies = 0
 
 
 def counts() -> dict[str, int]:
@@ -35,6 +39,10 @@ def counts() -> dict[str, int]:
             "blur4_vector": blur4.vector_launches,
             "fused_noise_bias_lrelu": fused_noise_bias_lrelu.launches,
             "masked_scale": masked_scale.launches,
+            "blur4_bf16": blur4.bf16_launches, "blur4_backward_bf16": blur4.bf16_backward_launches,
+            "blur4_vector_bf16": blur4.bf16_vector_launches,
+            "fused_noise_bias_lrelu_bf16": fused_noise_bias_lrelu.bf16_launches,
+            "masked_scale_bf16": masked_scale.bf16_launches,
             "blur4_grad_copies": blur4.grad_copies,
             "masked_scale_grad_copies": masked_scale.grad_copies}
 

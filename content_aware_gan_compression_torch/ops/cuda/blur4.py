@@ -5,7 +5,8 @@
 down=1, pad=pad)`` for a 4x4 kernel and pads >= 0 on an NHWC tensor. On a CUDA
 tensor it launches the kernel (or raises) as ``launch_plan`` cuts it; on a
 CPU tensor it runs ``blur4_plain``, the same 16 multiply-adds written in
-PyTorch. Its backward is the same blur with the kernel flipped on both axes
+PyTorch. Both take float32 or bfloat16; a bfloat16 blur sums in float32 and
+rounds each output once. Its backward is the same blur with the kernel flipped on both axes
 and pads ``(3-p0, 3-p1)``, as the JAX package's ``_blur4_bwd``: it goes
 through ``Blur4Fn`` again, so R1's and the path-length regularizer's grad of
 grad stay on the kernel.
@@ -43,7 +44,11 @@ def correlation_taps(kernel, gain: float = 1.0) -> list[float]:
 
 
 def blur4_plain(x: torch.Tensor, taps: list[float], pad: tuple[int, int]) -> torch.Tensor:
-    """Plain PyTorch: zero-pad, then sum the 16 shifted, tap-weighted views."""
+    """Plain PyTorch: zero-pad, then sum the 16 shifted, tap-weighted views.
+    A bfloat16 input is summed in float32 and rounded once, as the kernel
+    does."""
+    if x.dtype == torch.bfloat16:
+        return blur4_plain(x.float(), taps, pad).to(torch.bfloat16)
     p0, p1 = pad
     xp = F.pad(x, (0, 0, p0, p1, p0, p1))
     ho, wo = xp.shape[1] - 3, xp.shape[2] - 3
@@ -55,10 +60,20 @@ def blur4_plain(x: torch.Tensor, taps: list[float], pad: tuple[int, int]) -> tor
     return out
 
 
-def lane_width(c: int, *pointers: int) -> int:
-    """Channels per thread: 4 (``float4``) when ``c % 4 == 0`` and every
-    pointer is 16-byte aligned, else 1."""
-    return 4 if c % 4 == 0 and all(p % 16 == 0 for p in pointers) else 1
+# the lane widths the kernel has for each element size: 16 bytes, a
+# bfloat16 pair (4 bytes) and one element
+LANES = {4: (4, 1), 2: (8, 2, 1)}
+
+
+def lane_width(c: int, *pointers: int, itemsize: int = 4) -> int:
+    """Channels per thread for ``itemsize``-byte elements: the widest lane of
+    ``LANES[itemsize]`` that divides ``c`` and whose bytes divide every
+    pointer. float32: 4 (``float4``) or 1; bfloat16: 8 (16 bytes), 2 (an
+    ``__nv_bfloat162``) or 1."""
+    for vec in LANES[itemsize]:
+        if c % vec == 0 and all(p % (vec * itemsize) == 0 for p in pointers):
+            return vec
+    raise AssertionError("unreachable: 1 lane always fits")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,6 +93,7 @@ class Blur4Plan:
     n_ctiles: int
     grid: tuple[int, int, int]
     smem_bytes: int  # dynamic shared memory: 0, the neighbouring columns come from L1
+    itemsize: int = 4  # bytes per element: 4 float32, 2 bfloat16
 
     @property
     def out_shape(self) -> tuple[int, int, int, int]:
@@ -109,9 +125,10 @@ class Blur4Plan:
 
 @functools.lru_cache(maxsize=256)
 def launch_plan(shape, pad, vec: int, sms: int = SMS, block_threads: int = BLOCK_THREADS,
-                strip_rows: int = STRIP_ROWS) -> Blur4Plan:
-    """The launch of ``csrc/blur4.cu`` for an NHWC input of ``shape``, pads
-    ``pad`` and ``vec`` channels per thread. A block takes one channel tile
+                strip_rows: int = STRIP_ROWS, itemsize: int = 4) -> Blur4Plan:
+    """The launch of ``csrc/blur4.cu`` for an NHWC input of ``shape`` with
+    ``itemsize``-byte elements, pads ``pad`` and ``vec`` channels per thread
+    (one of ``LANES[itemsize]``). A block takes one channel tile
     (at most ``block_threads`` vectors) and as many columns as fill
     ``block_threads``; strips are ``strip_rows`` high, halved while the grid
     has fewer than 2 blocks per SM of ``sms``. ``bench_blur4 --sweep`` varies
@@ -120,8 +137,9 @@ def launch_plan(shape, pad, vec: int, sms: int = SMS, block_threads: int = BLOCK
     b, h, w, c = (int(n) for n in shape)
     p0, p1 = (int(p) for p in pad)
     ho, wo = h + p0 + p1 - 3, w + p0 + p1 - 3
-    if vec not in (1, 4) or c % vec:
-        raise ValueError(f"blur4 takes 1 or 4 lanes dividing C; got {vec} for C={c}")
+    if itemsize not in LANES or vec not in LANES[itemsize] or c % vec:
+        raise ValueError(f"blur4 takes lanes of {LANES.get(itemsize)} elements dividing C for "
+                         f"{itemsize}-byte elements; got {vec} for C={c}")
     if min(p0, p1) < 0 or min(b, c, ho, wo) < 1:
         raise ValueError(f"blur4 has no output for input {tuple(shape)}, pad {tuple(pad)}")
     if max(h * w * c, ho * wo * c) > MAX_IMAGE_ELEMENTS:
@@ -136,7 +154,7 @@ def launch_plan(shape, pad, vec: int, sms: int = SMS, block_threads: int = BLOCK
     while th > 1 and gx * -(-ho // th) * b < 2 * sms:
         th //= 2
     plan = Blur4Plan((b, h, w, c), (p0, p1), vec, cv_tile, tw, th, n_ctiles,
-                     (gx, -(-ho // th), b), 0)
+                     (gx, -(-ho // th), b), 0, itemsize)
     if cv_tile * tw > MAX_BLOCK_THREADS:
         raise ValueError(f"blur4 block of {cv_tile * tw} threads > {MAX_BLOCK_THREADS}")
     if plan.smem_bytes > MAX_SMEM_BYTES:
@@ -153,9 +171,9 @@ def _sm_count(index: int) -> int:
 
 
 @functools.cache
-def _entry():
+def _entry(dtype: torch.dtype):
     lib = build.library("blur4")
-    fn = lib.blur4_forward
+    fn = lib.blur4_forward_bf16 if dtype == torch.bfloat16 else lib.blur4_forward
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_float)] \
         + [ctypes.c_int] * 15 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -168,28 +186,34 @@ def _run(x: torch.Tensor, taps: list[float], pad: tuple[int, int], backward: boo
         return blur4_plain(x, taps, pad)
     if x.device.type != "cuda":
         raise ValueError(f"blur4 runs on cuda or cpu, not {x.device}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"blur4 kernel takes float32, got {x.dtype}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"blur4 kernel takes float32 or bfloat16, got {x.dtype}")
     if x.dim() != 4 or not x.is_contiguous():
         raise ValueError("blur4 kernel takes a contiguous NHWC [B,H,W,C] tensor, "
                          f"got shape {tuple(x.shape)} strides {x.stride()}")
     p0, p1 = pad
     b, h, w, c = x.shape
     out = torch.empty((b, h + p0 + p1 - 3, w + p0 + p1 - 3, c), dtype=x.dtype, device=x.device)
-    vec = lane_width(c, x.data_ptr(), out.data_ptr())
-    plan = launch_plan(tuple(x.shape), (p0, p1), vec, _sm_count(x.device.index))
-    lib, fn = _entry()
+    itemsize = x.element_size()
+    vec = lane_width(c, x.data_ptr(), out.data_ptr(), itemsize=itemsize)
+    plan = launch_plan(tuple(x.shape), (p0, p1), vec, _sm_count(x.device.index),
+                       itemsize=itemsize)
+    lib, fn = _entry(x.dtype)
     err = fn(x.data_ptr(), out.data_ptr(), (ctypes.c_float * 16)(*taps),
              b, h, w, c, p0, p1, plan.vec, plan.cv_tile, plan.tw, plan.th, plan.n_ctiles,
              plan.grid[0], plan.grid[1], plan.smem_bytes, x.device.index,
              torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, "blur4", err)
-    if vec == 4:
-        blur4.vector_launches += 1
+    bf16 = x.dtype == torch.bfloat16
+    wide = vec * itemsize == 16
+    blur4.vector_launches += wide
+    blur4.bf16_vector_launches += wide and bf16
     if backward:
         blur4.backward_launches += 1
+        blur4.bf16_backward_launches += bf16
     else:
         blur4.launches += 1
+        blur4.bf16_launches += bf16
     return out
 
 
@@ -225,5 +249,7 @@ def blur4(x: torch.Tensor, kernel, pad: tuple[int, int], gain: float = 1.0) -> t
 
 blur4.launches = 0  # forward kernel launches since the last reset; the CPU path adds none
 blur4.backward_launches = 0  # launches made by autograd's backward, of any order
-blur4.vector_launches = 0  # launches, forward or backward, with float4 lanes
+blur4.vector_launches = 0  # launches, forward or backward, with 16-byte lanes
+# the same three counts of the launches on bfloat16 tensors (also counted above)
+blur4.bf16_launches = blur4.bf16_backward_launches = blur4.bf16_vector_launches = 0
 blur4.grad_copies = 0  # gradients made contiguous before a backward launch

@@ -5,10 +5,16 @@ differentiable to any order.
 ``fused_noise_bias_lrelu(x, noise, bias, noise_weight)`` computes
 ``lrelu(x + noise_weight * noise + bias, 0.2) * sqrt(2)`` out of place. On a
 CUDA tensor it launches the kernel (or raises); on a CPU tensor it runs
-``fused_noise_bias_lrelu_plain``. Its backward is the JAX package's
-``_bwd_vjp``: ``dx`` is ``MaskedScaleFn`` of the incoming gradient and the
-saved output (the ``masked_scale`` kernel on the card), and the noise, bias
-and noise-weight gradients are sums of ``dx``, reduced on the device.
+``fused_noise_bias_lrelu_plain``. Both take float32 or bfloat16 (all four
+tensors of one type); in bfloat16 the expression runs in float32 and the
+output is rounded once. Its backward is the JAX package's ``_bwd_vjp``:
+``dx`` is ``MaskedScaleFn`` of the incoming gradient and the saved output
+(the ``masked_scale`` kernel on the card), and the noise, bias and
+noise-weight gradients are sums of ``dx``, reduced on the device in float32
+at least and rounded once to their tensors' type. In bfloat16 that is the
+rounded ``dx``, as the JAX ``_bwd_vjp`` sums it; autograd of the plain
+expression sums the unrounded one instead, so the two differ there by the
+rounding of ``dx`` (first order) and what a second order makes of it.
 """
 
 from __future__ import annotations
@@ -24,15 +30,20 @@ from .masked_scale import MaskedScaleFn
 
 
 def fused_noise_bias_lrelu_plain(x, noise, bias, noise_weight):
-    """Plain PyTorch, in the order the kernel computes: (x + nw*noise) + bias."""
+    """Plain PyTorch, in the order the kernel computes: (x + nw*noise) + bias.
+    bfloat16 inputs: the same in float32, rounded once at the end."""
+    if x.dtype == torch.bfloat16:
+        return fused_noise_bias_lrelu_plain(
+            x.float(), noise.float(), bias.float(), noise_weight.float()).to(torch.bfloat16)
     pre = x + noise_weight * noise + bias
     return torch.where(pre >= 0, pre, pre * 0.2) * math.sqrt(2.0)
 
 
 @functools.cache
-def _entry():
+def _entry(dtype: torch.dtype):
     lib = build.library("fused_noise_bias_lrelu")
-    fn = lib.fused_noise_bias_lrelu_forward
+    fn = (lib.fused_noise_bias_lrelu_forward_bf16 if dtype == torch.bfloat16
+          else lib.fused_noise_bias_lrelu_forward)
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
@@ -46,19 +57,22 @@ def _run(x, noise, bias, noise_weight):
         raise ValueError(f"fused_noise_bias_lrelu runs on cuda or cpu, not {x.device}")
     for name, t in (("x", x), ("noise", noise), ("bias", bias),
                     ("noise_weight", noise_weight)):
-        if t.device != x.device or t.dtype != torch.float32 or not t.is_contiguous():
-            raise TypeError(f"fused_noise_bias_lrelu kernel takes contiguous float32 "
-                            f"tensors on {x.device}; {name} is {t.dtype} on {t.device}, "
-                            f"contiguous={t.is_contiguous()}")
+        if (t.device != x.device or t.dtype != x.dtype
+                or t.dtype not in (torch.float32, torch.bfloat16) or not t.is_contiguous()):
+            raise TypeError(f"fused_noise_bias_lrelu kernel takes contiguous tensors of one "
+                            f"type, float32 or bfloat16, on {x.device}; {name} is {t.dtype} "
+                            f"on {t.device}, contiguous={t.is_contiguous()}")
     b, h, w, c = x.shape
     out = torch.empty_like(x)
-    vec4 = c % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (x, bias, out))
-    lib, fn = _entry()
+    lanes = 16 // x.element_size()  # 16-byte vectors: 4 float32 or 8 bfloat16
+    vec4 = c % lanes == 0 and all(t.data_ptr() % 16 == 0 for t in (x, bias, out))
+    lib, fn = _entry(x.dtype)
     err = fn(x.data_ptr(), noise.data_ptr(), bias.data_ptr(), noise_weight.data_ptr(),
              out.data_ptr(), b, h, w, c, noise.shape[0], int(vec4), x.device.index,
              torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, "fused_noise_bias_lrelu", err)
     fused_noise_bias_lrelu.launches += 1
+    fused_noise_bias_lrelu.bf16_launches += x.dtype == torch.bfloat16
     return out
 
 
@@ -76,16 +90,20 @@ class FusedNoiseBiasLReLUFn(torch.autograd.Function):
         out, noise, nw = ctx.saved_tensors
         dx = MaskedScaleFn.apply(g, out)
         need_noise, need_bias, need_nw = ctx.needs_input_grad[1:]
-        sum_c = dx.sum(-1, keepdim=True) if need_noise or need_nw else None
+        # the sums run in float32 at least (bfloat16 is widened) and round
+        # once to the type of the tensor they are the gradient of
+        acc = torch.promote_types(dx.dtype, torch.float32)
+        sum_c = dx.sum(-1, keepdim=True, dtype=acc) if need_noise or need_nw else None
         dnoise = dbias = dnw = None
         if need_noise:
-            dnoise = nw * sum_c
+            dnoise = nw.to(acc) * sum_c
             if noise.shape[0] != dnoise.shape[0]:  # a [1,H,W,1] buffer broadcast over B
                 dnoise = dnoise.sum(0, keepdim=True)
+            dnoise = dnoise.to(noise.dtype)
         if need_bias:
-            dbias = dx.sum((0, 1, 2))
+            dbias = dx.sum((0, 1, 2), dtype=acc).to(dx.dtype)
         if need_nw:
-            dnw = (sum_c * noise).sum().reshape(nw.shape)
+            dnw = (sum_c * noise.to(acc)).sum().reshape(nw.shape).to(nw.dtype)
         return dx, dnoise, dbias, dnw
 
 
@@ -104,3 +122,4 @@ def fused_noise_bias_lrelu(x: torch.Tensor, noise: torch.Tensor, bias: torch.Ten
 
 
 fused_noise_bias_lrelu.launches = 0  # kernel launches since the last reset; the CPU path adds none
+fused_noise_bias_lrelu.bf16_launches = 0  # those on bfloat16 tensors

@@ -20,14 +20,25 @@ from .cuda import fused_noise_bias_lrelu
 def fused_leaky_relu(x: torch.Tensor, bias: torch.Tensor | None = None,
                      negative_slope: float = 0.2, scale: float = math.sqrt(2.0),
                      channel_axis: int = -1) -> torch.Tensor:
-    """(x + bias) -> LeakyReLU(negative_slope) -> * scale.
+    """(x + bias) -> LeakyReLU(negative_slope) -> * scale, in ``x``'s type
+    (the bias is cast to it, as in the JAX package).
+
+    A bfloat16 ``x`` (and bias) is widened, the chain runs in float32 and
+    the result is rounded once: XLA's fusions compute the JAX package's
+    bfloat16 chain so, and the CUDA epilogue does too. Rounding after each
+    of the four operations, as eager bfloat16 ops would, doubled the error
+    of the discriminator's input gradient (R1) against float64.
 
     ``channel_axis`` is the axis the 1-D bias broadcasts over (-1 for NHWC
     maps and [B, D] vectors, 1 for NCHW)."""
+    if x.dtype == torch.bfloat16:
+        bias = None if bias is None else bias.to(x.dtype).float()
+        return fused_leaky_relu(x.float(), bias, negative_slope, scale,
+                                channel_axis).to(x.dtype)
     if bias is not None:
         shape = [1] * x.dim()
         shape[channel_axis] = bias.shape[0]
-        x = x + bias.reshape(shape)
+        x = x + bias.to(x.dtype).reshape(shape)
     return torch.where(x >= 0, x, x * negative_slope) * scale
 
 

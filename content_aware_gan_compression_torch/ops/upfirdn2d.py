@@ -90,14 +90,14 @@ def blur(x, kernel, pad: tuple[int, int], upsample_factor: int = 1,
     """FIR blur with explicit pads (reference model.py:80-96); after a
     transposed conv the kernel is scaled by upsample_factor^2.
 
-    A 4x4 kernel with pads >= 0 on a float32 NHWC tensor goes to ``blur4``
-    (``Blur4Fn``): the CUDA kernel on the card, its plain version on the CPU,
-    with a backward that is the same blur, to any order. Anything else takes
-    the general ``upfirdn2d``. ``kernel`` is a host (CPU) tensor, so the
+    A 4x4 kernel with pads >= 0 on a float32 or bfloat16 NHWC tensor goes to
+    ``blur4`` (``Blur4Fn``): the CUDA kernel on the card, its plain version on
+    the CPU, with a backward that is the same blur, to any order. Anything
+    else takes the general ``upfirdn2d``. ``kernel`` is a host (CPU) tensor, so the
     kernel's taps reach it without a device round trip."""
     gain = float(upsample_factor ** 2) if upsample_factor > 1 else 1.0
     if (data_format == "NHWC" and tuple(kernel.shape) == (4, 4)
-            and min(pad) >= 0 and x.dtype == torch.float32):
+            and min(pad) >= 0 and x.dtype in (torch.float32, torch.bfloat16)):
         return blur4(x, kernel, tuple(pad), gain)
     if gain != 1.0:
         kernel = kernel * gain

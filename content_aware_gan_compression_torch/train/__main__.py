@@ -5,10 +5,12 @@ flag-compatible with the reference train.py):
         --ckpt student.npz --teacher_ckpt teacher.npz
 
 Every reference flag keeps its name and default; boolean flags parse with
-``str2bool``. ``--device`` (default ``cuda``) picks the card or the CPU. The
-JAX CLI's TPU flags (``--dtype``, ``--opt_state_dtype``, ``--n_devices``,
-``--remat``, ``--packed_trunk``, ``--steps_per_dispatch``, ``--input_put``,
-``--data_echo``) have no counterpart.
+``str2bool``. ``--device`` (default ``cuda``) picks the card or the CPU.
+``--dtype bfloat16`` runs the steps in bfloat16 and ``--opt_state_dtype
+bfloat16`` stores Adam's second moment in it, as in the JAX CLI. The JAX
+CLI's TPU flags (``--n_devices``, ``--remat``, ``--packed_trunk``,
+``--steps_per_dispatch``, ``--input_put``, ``--data_echo``) have no
+counterpart.
 
 The content-aware KD mask and the LPIPS term need the aux nets' weights:
 BiSeNet from ``--parsing_ckpt`` (the reference's ``79999_iter.pth`` schema),
@@ -77,6 +79,12 @@ def parse_args(argv=None):
     p.add_argument("--kd_mode", type=str, default=hp.kd_mode)
     p.add_argument("--content_aware_KD", type=str2bool, default=hp.content_aware_KD)
     p.add_argument("--seed", type=int, default=hp.seed)
+    p.add_argument("--dtype", type=str, default=hp.compute_dtype,
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--opt_state_dtype", type=str, default=hp.opt_state_dtype,
+                   choices=["float32", "bfloat16"],
+                   help="storage dtype for Adam's second moment (bfloat16 halves its "
+                        "bytes; arithmetic stays f32 — deviates from reference numerics)")
     p.add_argument("--parsing_ckpt", type=str, default="./Model/face_parsing/79999_iter.pth")
     p.add_argument("--lpips_vgg_ckpt", type=str,
                    default="./Model/metrics/vgg16_torchvision.pth")
@@ -104,7 +112,8 @@ def config_from_args(args):
         val_sample_freq=args.val_sample_freq, model_save_freq=args.model_save_freq,
         fid_n_sample=args.fid_n_sample, fid_batch=args.fid_batch, teacher=args.teacher_ckpt,
         kd_l1_lambda=args.kd_l1_lambda, kd_lpips_lambda=args.kd_lpips_lambda,
-        kd_mode=args.kd_mode, content_aware_KD=args.content_aware_KD, seed=args.seed)
+        kd_mode=args.kd_mode, content_aware_KD=args.content_aware_KD, seed=args.seed,
+        compute_dtype=args.dtype, opt_state_dtype=args.opt_state_dtype)
     return cfg
 
 
@@ -165,7 +174,8 @@ def main(argv=None):
         f"    Initial Checkpoint: {cfg.ckpt}\n"
         f"    Load Training State: {cfg.load_train_state}\n\n"
         f"  Device:\n"
-        f"    {trainer.device}\n\n"
+        f"    {trainer.device}\n"
+        f"    Compute dtype: {cfg.compute_dtype}\n\n"
         f"  Training Params:\n"
         f"    Training Iterations: {cfg.training_iters}\n"
         f"    Batch Size: {cfg.batch_size}\n"

@@ -30,7 +30,7 @@ from ..utils.runtime import resolve_device
 from .config import TrainConfig
 from .steps import (
     d_reg_step, d_step, draw_d, draw_g, draw_g_reg, ema_accumulate, g_reg_step, g_step,
-    make_optimizers, prepare_real)
+    make_optimizers, prepare_real, torch_dtype)
 
 
 def _frozen(net_or_state, build, device):
@@ -61,12 +61,18 @@ class Trainer:
     ``inception_params`` (an ``InceptionV3`` or its state dict) with
     ``real_stats`` ({'mean', 'cov'} or a pickle path) turn on the FID of
     ``g_ema`` every ``model_save_freq`` iterations in ``run``.
+
+    ``cfg.compute_dtype`` is the steps' compute type (``dtype``), as the JAX
+    Trainer hands it to ``make_train_steps`` and nowhere else: ``g_ema``'s
+    sample grids and the in-loop FID run in float32 there and here.
+    ``cfg.opt_state_dtype`` is the type both optimizers store ``nu`` in.
     """
 
     def __init__(self, cfg: TrainConfig, *, device="cuda", exp_root=".", lpips_params=None,
                  parse_params=None, inception_params=None, real_stats=None):
         self.cfg = cfg
         self.device = device = resolve_device(device)
+        self.dtype = torch_dtype(cfg.compute_dtype)
         self.exp_root = exp_root
         init = torch.Generator().manual_seed(cfg.seed)
         size, style, n_mlp = cfg.generated_img_size, cfg.latent, cfg.n_mlp
@@ -149,16 +155,16 @@ class Trainer:
         real = prepare_real(real_img, self.device)
         draws = draws if draws is not None else self.draw(iter_idx)
         hook = phase_hook or (lambda name: None)
-        metrics = d_step(self.g, self.d, self.d_opt, real, draws["d"], cfg)
+        metrics = d_step(self.g, self.d, self.d_opt, real, draws["d"], cfg, self.dtype)
         hook("d")
         if iter_idx % cfg.d_reg_freq == 0:
-            metrics.update(d_reg_step(self.d, self.d_opt, real, cfg))
+            metrics.update(d_reg_step(self.d, self.d_opt, real, cfg, self.dtype))
             hook("d_reg")
         metrics.update(self.g_phase(draws["g"]))
         hook("g")
         if iter_idx % cfg.g_reg_freq == 0:
             mean_path_length, m = g_reg_step(self.g, self.g_opt, draws["g_reg"],
-                                             mean_path_length, cfg)
+                                             mean_path_length, cfg, self.dtype)
             metrics.update(m)
             hook("g_reg")
         ema_accumulate(self.g_ema, self.g)
@@ -169,7 +175,7 @@ class Trainer:
         """The G phase of ``step``: the GAN + KD step. A trainer with another
         G objective overrides this."""
         return g_step(self.g, self.g_opt, self.d, draws, self.cfg, self.teacher, self.lpips,
-                      self.parser)
+                      self.parser, self.dtype)
 
     # -------------------------------------------------------------------------
     def save(self, logger: ExperimentLogger, iter_idx: int) -> str:

@@ -21,19 +21,20 @@ def g_nonsaturating_loss(fake_pred):
     return F.softplus(-fake_pred).mean()
 
 
-def r1_penalty(discriminator, real_img):
+def r1_penalty(discriminator, real_img, dtype=None):
     """R1 = E[||grad_x D(x)||^2] (reference train.py:194-200), with the graph
-    kept for its own gradient. Returns the raw penalty; the caller weighs it
-    by r1/2 * d_reg_every."""
+    kept for its own gradient; D runs in ``dtype``, the gradient comes back
+    in the image's type. Returns the raw penalty; the caller weighs it by
+    r1/2 * d_reg_every."""
     real_img = real_img.detach().requires_grad_(True)
-    (grad,) = torch.autograd.grad(discriminator(real_img).float().sum(), real_img,
+    (grad,) = torch.autograd.grad(discriminator(real_img, dtype).float().sum(), real_img,
                                   create_graph=True)
     return grad.reshape(grad.shape[0], -1).square().sum(1).mean()
 
 
 def kd_loss(fake_img, fake_img_list, teacher_img_list, *, kd_l1_lambda, kd_lpips_lambda,
             kd_mode, size, lpips=None, parse_fn=None, lpips_image_size=256,
-            data_format="NCHW"):
+            data_format="NCHW", aux_dtype=None):
     """Content-masked knowledge distillation (reference KD_loss,
     train.py:145-184): L1 between the (COI-masked) student and teacher
     images, the final output only or summed over the per-scale rgb list,
@@ -43,7 +44,10 @@ def kd_loss(fake_img, fake_img_list, teacher_img_list, *, kd_l1_lambda, kd_lpips
     The teacher's parse (``parse_fn``, BiSeNet head 0) masks both images;
     teacher images arrive without gradients. ``lpips`` is an ``LPIPS``
     module (or None: no LPIPS term). ``data_format`` is the layout of every
-    image and of ``parse_fn``'s input and output."""
+    image and of ``parse_fn``'s input and output. ``aux_dtype`` is the VGG
+    trunk's compute type (``LPIPS``'s ``dtype``; the caller's ``parse_fn``
+    handles BiSeNet's); the L1 term and the loss values stay in the images'
+    type."""
     fake_img_teacher = teacher_img_list[-1]
     if parse_fn is not None:
         teacher_parsing = batch_img_parsing(fake_img_teacher, parse_fn, data_format)
@@ -68,5 +72,6 @@ def kd_loss(fake_img, fake_img_list, teacher_img_list, *, kd_l1_lambda, kd_lpips
     if size > lpips_image_size:
         # the reference pools >256px images to 256 (train.py:176-182)
         a, b = (bilinear_resize(t, 256, 256, data_format) for t in (a, b))
-    kd_lpips = kd_lpips_lambda * torch.mean(lpips(a, b, data_format=data_format).float())
+    kw = {} if aux_dtype is None else {"dtype": aux_dtype}
+    kd_lpips = kd_lpips_lambda * torch.mean(lpips(a, b, data_format=data_format, **kw).float())
     return kd_l1, kd_lpips

@@ -89,26 +89,28 @@ def get_network_prune_mask(network_score, net_shape, *, pruning_mode, lay_rmve_r
     raise ValueError(f"unknown pruning_mode {pruning_mode!r}")
 
 
-def sparse_g_step(g, g_opt, d, draws, cfg, opts, teacher=None, lpips=None) -> dict:
+def sparse_g_step(g, g_opt, d, draws, cfg, opts, teacher=None, lpips=None,
+                  dtype=None) -> dict:
     """The sparse G step (the JAX package's sparsity g_step): the teacher's
     rgb list without gradients, the student with its rgb list and style
     scalars, D on the student's image; non-saturating loss + the L1 style
     penalty, plus KD-L1 (the final image or the unmasked rgb list) and the
     percept term (``opts['kd_percept_mode']``: VGG or LPIPS on the
     256-pooled images, with ``lpips``) when there is a teacher. One Adam
-    step of ``g``."""
+    step of ``g``. The teacher, the student and D run in ``dtype``, as the
+    JAX package threads ``compute_dtype`` there; the losses in float32."""
     teacher_list = None
     if teacher is not None:
         with torch.no_grad():
             teacher_list = [_f32_up(t) for t in teacher(
                 draws["z"], inject_index=draws["inject_index"], noise=draws["teacher_noise"],
-                output_format="NHWC", return_rgb_list=True)]
+                output_format="NHWC", return_rgb_list=True, dtype=dtype)]
     fake_list, style_list = g(draws["z"], inject_index=draws["inject_index"],
                               noise=draws["noise"], output_format="NHWC",
-                              return_rgb_list=True, return_style_scalars=True)
+                              return_rgb_list=True, return_style_scalars=True, dtype=dtype)
     fake_list = [_f32_up(f) for f in fake_list]
     fake_img = fake_list[-1]
-    g_loss = g_nonsaturating_loss(d(fake_img).float())
+    g_loss = g_nonsaturating_loss(d(fake_img, dtype).float())
     sparse = l1_style_sparse_loss([_f32_up(s) for s in style_list], opts["sparsity_eta"])
     metrics = {"g": g_loss.detach(), "sparse": sparse.detach()}
     total = g_loss + sparse
@@ -156,7 +158,7 @@ class SparsityTrainer(Trainer):
 
     def g_phase(self, draws) -> dict:
         return sparse_g_step(self.g, self.g_opt, self.d, draws, self.cfg, self.opts,
-                             self.teacher, self.lpips)
+                             self.teacher, self.lpips, self.dtype)
 
     def prune_in_training(self, z=None):
         """Score ``g_ema`` on ``z`` (``PRUNE_SAMPLES`` latents drawn from the

@@ -10,6 +10,11 @@ can hand both packages the same draws instead.
 Each step differentiates only its own network: the other one runs without
 gradients or is left out of ``backward(inputs=...)``, which is what the
 reference's requires_grad toggling does.
+
+``dtype`` is the compute type of the networks (the JAX package's
+``make_train_steps(dtype=...)``; ``TrainConfig.compute_dtype``): the
+generators, D and the aux nets run in it, D's logits and the losses in
+float32. None keeps float32.
 """
 
 from __future__ import annotations
@@ -34,10 +39,16 @@ class AdamNoMu(torch.optim.Optimizer):
     optax, the step count ``t`` is one per optimizer (``param_groups[0]
     ["step"]``), and a parameter without a gradient counts as a zero one: its
     ``nu`` decays and it does not move.
+
+    ``state_dtype`` (e.g. torch.bfloat16) is the type ``nu`` is stored in,
+    the parameter's if None. In the JAX order: ``nu`` is updated in the
+    gradient's type from the stored value, the update divides by that
+    unrounded ``nu``, and only then is ``nu`` rounded for storage.
     """
 
-    def __init__(self, params, lr: float, b2: float, eps: float = 1e-8):
+    def __init__(self, params, lr: float, b2: float, eps: float = 1e-8, state_dtype=None):
         super().__init__(params, {"lr": lr, "b2": b2, "eps": eps, "step": 0})
+        self.state_dtype = state_dtype
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -50,11 +61,14 @@ class AdamNoMu(torch.optim.Optimizer):
             b2, t = group["b2"], group["step"] + 1
             group["step"] = t
             grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
-            nus = []
+            stored = []
             for p in params:
                 if "exp_avg_sq" not in self.state[p]:
-                    self.state[p]["exp_avg_sq"] = torch.zeros_like(p)
-                nus.append(self.state[p]["exp_avg_sq"])
+                    self.state[p]["exp_avg_sq"] = torch.zeros_like(p, dtype=self.state_dtype)
+                stored.append(self.state[p]["exp_avg_sq"])
+            # nu in the gradient's type: the stored tensors themselves when
+            # they have it, else widened copies written back after the update
+            nus = [v if v.dtype == g.dtype else v.to(g.dtype) for v, g in zip(stored, grads)]
             # nu = (1 - b2) * g^2 + b2 * nu
             sq = torch._foreach_mul(grads, grads)
             torch._foreach_mul_(sq, 1.0 - b2)
@@ -68,17 +82,29 @@ class AdamNoMu(torch.optim.Optimizer):
             updates = torch._foreach_div(grads, denom)
             torch._foreach_mul_(updates, -group["lr"])
             torch._foreach_add_(params, updates)
+            for v, nu in zip(stored, nus):
+                if v is not nu:
+                    v.copy_(nu)  # rounds to the storage type
 
 
-def reg_ratio_adam(params, lr: float, ratio: float) -> AdamNoMu:
+def reg_ratio_adam(params, lr: float, ratio: float, state_dtype=None) -> AdamNoMu:
     """Adam at lr * ratio with betas (0, 0.99**ratio), eps 1e-8 (reference
-    train.py:528-537): the lazy regularizers' step-size correction."""
-    return AdamNoMu(params, lr * ratio, 0.99 ** ratio)
+    train.py:528-537): the lazy regularizers' step-size correction.
+    ``state_dtype``: the type ``nu`` is stored in (the parameters' if None)."""
+    return AdamNoMu(params, lr * ratio, 0.99 ** ratio, state_dtype=state_dtype)
+
+
+def torch_dtype(name: str | None):
+    """``TrainConfig``'s type names as a compute or storage type: None for
+    "float32" (keep the parameters' type), torch.bfloat16 for "bfloat16"."""
+    return {None: None, "float32": None, "bfloat16": torch.bfloat16}[name]
 
 
 def make_optimizers(g, d, cfg):
-    return (reg_ratio_adam(g.parameters(), cfg.init_lr, cfg.g_reg_ratio),
-            reg_ratio_adam(d.parameters(), cfg.init_lr, cfg.d_reg_ratio))
+    """The reg-ratio Adam pair, ``nu`` stored in ``cfg.opt_state_dtype``."""
+    sd = torch_dtype(cfg.opt_state_dtype)
+    return (reg_ratio_adam(g.parameters(), cfg.init_lr, cfg.g_reg_ratio, sd),
+            reg_ratio_adam(d.parameters(), cfg.init_lr, cfg.d_reg_ratio, sd))
 
 
 @torch.no_grad()
@@ -158,13 +184,13 @@ def _fake(g, draws, **kw):
              output_format="NHWC", **kw)
 
 
-def d_step(g, d, d_opt, real, draws, cfg) -> dict:
+def d_step(g, d, d_opt, real, draws, cfg, dtype=None) -> dict:
     """D GAN step (reference D_Loss_BackProp): logistic loss on a fresh fake
     batch and the real batch, then one Adam step of D."""
     with torch.no_grad():
-        fake = _fake(g, draws)
-    fake_pred = d(fake)
-    real_pred = d(real)
+        fake = _fake(g, draws, dtype=dtype)
+    fake_pred = d(fake, dtype)
+    real_pred = d(real, dtype)
     loss = d_logistic_loss(real_pred.float(), fake_pred.float())
     d_opt.zero_grad(set_to_none=True)
     loss.backward()
@@ -173,16 +199,18 @@ def d_step(g, d, d_opt, real, draws, cfg) -> dict:
             "fake_score": fake_pred.detach().mean()}
 
 
-def d_reg_step(d, d_opt, real, cfg) -> dict:
-    """D R1 step (reference D_Reg_BackProp): grad of grad through D."""
-    r1 = r1_penalty(d, real)
+def d_reg_step(d, d_opt, real, cfg, dtype=None) -> dict:
+    """D R1 step (reference D_Reg_BackProp): grad of grad through D, the
+    image's gradient in the real batch's type."""
+    r1 = r1_penalty(d, real, dtype)
     d_opt.zero_grad(set_to_none=True)
     (cfg.discriminator_r1 / 2 * r1 * cfg.d_reg_freq).backward()
     d_opt.step()
     return {"r1": r1.detach()}
 
 
-def g_step(g, g_opt, d, draws, cfg, teacher=None, lpips=None, parser=None) -> dict:
+def g_step(g, g_opt, d, draws, cfg, teacher=None, lpips=None, parser=None,
+           dtype=None) -> dict:
     """G GAN + KD step (reference G_Loss_BackProp), against the D it is
     given, which the caller has already updated this iteration. ``lpips``
     (an ``LPIPS``) adds the LPIPS term and ``parser`` (a ``BiSeNet``) the
@@ -194,12 +222,12 @@ def g_step(g, g_opt, d, draws, cfg, teacher=None, lpips=None, parser=None) -> di
         with torch.no_grad():
             t_out = teacher(draws["z"], inject_index=draws["inject_index"],
                             noise=draws["teacher_noise"], output_format="NHWC",
-                            return_rgb_list=need_lists)
+                            return_rgb_list=need_lists, dtype=dtype)
         teacher_list = list(t_out) if need_lists else [t_out]
-    g_out = _fake(g, draws, return_rgb_list=need_lists)
+    g_out = _fake(g, draws, return_rgb_list=need_lists, dtype=dtype)
     fake_list = list(g_out) if need_lists else [g_out]
     fake_img = fake_list[-1]
-    g_loss = g_nonsaturating_loss(d(fake_img).float())
+    g_loss = g_nonsaturating_loss(d(fake_img, dtype).float())
     metrics = {"g": g_loss.detach()}
     total = g_loss
     if teacher_list is not None:
@@ -208,8 +236,8 @@ def g_step(g, g_opt, d, draws, cfg, teacher=None, lpips=None, parser=None) -> di
             [_f32_up(t) for t in teacher_list], kd_l1_lambda=cfg.kd_l1_lambda,
             kd_lpips_lambda=cfg.kd_lpips_lambda, kd_mode=cfg.kd_mode,
             size=cfg.generated_img_size, lpips=lpips,
-            parse_fn=None if parser is None else make_parse_fn(parser, "NHWC"),
-            lpips_image_size=LPIPS_IMAGE_SIZE, data_format="NHWC")
+            parse_fn=None if parser is None else make_parse_fn(parser, "NHWC", dtype),
+            lpips_image_size=LPIPS_IMAGE_SIZE, data_format="NHWC", aux_dtype=dtype)
         metrics["kd_l1_loss"] = kd_l1.detach()
         metrics["kd_lpips_loss"] = kd_lpips.detach()
         total = g_loss + kd_l1 + kd_lpips
@@ -219,12 +247,12 @@ def g_step(g, g_opt, d, draws, cfg, teacher=None, lpips=None, parser=None) -> di
     return metrics
 
 
-def g_reg_step(g, g_opt, draws, mean_path_length, cfg):
+def g_reg_step(g, g_opt, draws, mean_path_length, cfg, dtype=None):
     """G path-length step (reference G_Reg_BackProp): the path lengths'
     spread around their running mean, decayed by 0.01. Returns (the new
     running mean, metrics)."""
     _, path_lengths = g(draws["z"], inject_index=draws["inject_index"], noise=draws["noise"],
-                        PPL_regularize=True, ppl_noise=draws["ppl_noise"])
+                        PPL_regularize=True, ppl_noise=draws["ppl_noise"], dtype=dtype)
     path_mean = mean_path_length + 0.01 * (path_lengths.mean() - mean_path_length)
     path_loss = torch.mean(torch.square(path_lengths - path_mean))
     g_opt.zero_grad(set_to_none=True)

@@ -236,13 +236,16 @@ def _jax_nu_key(name: str) -> str:
 def optimizer_state_to_jax(optimizer, module) -> dict[str, torch.Tensor]:
     """``optimizer``'s state as the JAX package's flat tree for ``module``'s
     leaves. Buffers (the generator's noise maps) take a zero second moment,
-    which is what JAX holds for leaves that never get a gradient."""
+    which is what JAX holds for leaves that never get a gradient. ``nu``
+    keeps its storage type (``state_dtype``): a bfloat16 one is written as
+    bfloat16, as the JAX package writes its optax state."""
     params = dict(module.named_parameters())
+    state_dtype = getattr(optimizer, "state_dtype", None)
     tree = {"[0].count": torch.tensor(optimizer.param_groups[0]["step"], dtype=torch.int32)}
     for name, value in module.state_dict().items():
         state = optimizer.state.get(params[name], {}) if name in params else {}
         # a buffer, or a parameter before the first step: zero
-        nu = state.get("exp_avg_sq", torch.zeros_like(value))
+        nu = state.get("exp_avg_sq", torch.zeros_like(value, dtype=state_dtype))
         tree[_jax_nu_key(name)] = nu.detach().cpu()
     return tree
 
@@ -252,7 +255,9 @@ def load_optimizer_state(optimizer, module, tree) -> None:
     parameters: the JAX package's flat tree (``optimizer_state_to_jax``'s
     format; entries of buffers are dropped) or a reference torch Adam
     ``state_dict`` ({'state', 'param_groups'}, whose first moment the b1 == 0
-    optimizer does not need)."""
+    optimizer does not need). ``nu`` is stored in the optimizer's
+    ``state_dtype`` (the parameter's type if it has none), whatever type
+    the file holds it in."""
     named = dict(module.named_parameters())
     if "state" in tree and "param_groups" in tree:
         order = list(named.values())
@@ -283,11 +288,13 @@ def load_optimizer_state(optimizer, module, tree) -> None:
         raise ValueError(f"optimizer state lacks {len(missing)} parameters, e.g. {missing[:3]}")
     for group in optimizer.param_groups:
         group["step"] = step
+    state_dtype = getattr(optimizer, "state_dtype", None)
     for p, nu in nus.items():
         if nu.shape != p.shape:
             raise ValueError(f"optimizer state shape {tuple(nu.shape)} != parameter "
                              f"{tuple(p.shape)}")
-        optimizer.state[p]["exp_avg_sq"] = nu.to(device=p.device, dtype=p.dtype).clone()
+        optimizer.state[p]["exp_avg_sq"] = nu.to(device=p.device,
+                                                 dtype=state_dtype or p.dtype).clone()
 
 
 def load_training_checkpoint(path: str) -> tuple[dict, dict]:

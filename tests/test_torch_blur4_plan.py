@@ -176,3 +176,67 @@ def test_tiled_algorithm_equals_blur4_plain(shape, pad, sms):
         got, stores = _emulate(x, taps, plan)
         assert bool((stores == 1).all())
         torch.testing.assert_close(got, want, rtol=0, atol=1e-6 * x.abs().max().item())
+
+
+# -- bfloat16 -------------------------------------------------------------------
+
+def _bf16_lanes(c):
+    """The lanes a bfloat16 blur of C channels takes on aligned tensors."""
+    return lane_width(c, 0, 0, itemsize=2)
+
+
+@pytest.mark.parametrize("c,pointers,want", [
+    (128, (0, 16 * 999), 8), (8, (256, 512), 8), (512, (2 ** 40, 2 ** 40 + 16), 8),
+    (154, (0, 0), 2), (130, (0, 0), 2), (12, (0, 0), 2), (128, (8, 0), 2), (128, (4, 0), 2),
+    (77, (0, 0), 1), (39, (0, 0), 1), (3, (0, 0), 1), (128, (2, 0), 1), (154, (0, 6), 1),
+])
+def test_bf16_lane_width(c, pointers, want):
+    """bfloat16: 8 values (16 bytes) when C % 8 == 0 and every pointer is
+    16-byte aligned, a pair (4 bytes) when C is even and they are 4-byte
+    aligned, else one value."""
+    assert lane_width(c, *pointers, itemsize=2) == want
+
+
+def test_bf16_lanes_of_the_paths_widths():
+    """The 11x student's up-blurs take pairs at C = 154 and single values at
+    C = 77 and 39; the full-width generator's and D's widths take 16 bytes."""
+    assert [_bf16_lanes(s[3]) for s, _ in PATH_CASES[6:12]] == [2, 2, 2, 2, 1, 1]
+    assert {_bf16_lanes(s[3]) for s, _ in PATH_CASES[:6] + PATH_CASES[24:36]} == {8}
+
+
+@pytest.mark.parametrize("shape,pad", PATH_CASES + RAGGED_CASES)
+def test_bf16_plan_tiles_cover_every_output_once_and_fit_the_card(shape, pad):
+    for vec in {_bf16_lanes(shape[3]), 1}:
+        plan = launch_plan(shape, pad, vec, itemsize=2)
+        assert plan.itemsize == 2 and plan.vec == vec
+        hits, windows_right = _coverage(plan)
+        assert bool((hits == 1).all()) and windows_right
+        assert plan.cv_tile * plan.tw <= MAX_BLOCK_THREADS and max(plan.grid[1:]) <= MAX_GRID_YZ
+
+
+@pytest.mark.parametrize("shape,vec,itemsize", [
+    ((2, 9, 9, 12), 4, 2), ((2, 9, 9, 12), 8, 2), ((2, 9, 9, 16), 2, 4), ((2, 9, 9, 16), 8, 4),
+])
+def test_plan_refuses_lanes_of_the_other_type(shape, vec, itemsize):
+    """float32 takes 4 or 1 lanes, bfloat16 8, 2 or 1, each dividing C."""
+    with pytest.raises(ValueError, match="lanes"):
+        launch_plan(shape, (1, 1), vec, itemsize=itemsize)
+
+
+@pytest.mark.parametrize("shape,pad,sms", [
+    ((2, 9, 7, 16), (2, 1), 132), ((1, 37, 11, 10), (0, 3), 1), ((1, 19, 6, 130), (3, 3), 1),
+    ((1, 35, 12, 600), (1, 2), 1),
+])
+def test_tiled_algorithm_equals_blur4_plain_in_bf16(shape, pad, sms):
+    """Every tile of a bfloat16 plan, emulated in float32 (a multiply, then
+    an add, per tap, in the kernel's order) and rounded once, gives
+    blur4_plain's bfloat16 result bit for bit."""
+    x = torch.from_numpy(np.random.RandomState(1).randn(*shape).astype(np.float32))
+    x = x.to(torch.bfloat16)
+    taps = (torch.arange(16, dtype=torch.float64) / 120).float().tolist()
+    want = blur4_plain(x, taps, pad)
+    for vec in {_bf16_lanes(shape[3]), 1}:
+        plan = launch_plan(shape, pad, vec, sms, itemsize=2)
+        got, stores = _emulate(x.float(), taps, plan)
+        assert bool((stores == 1).all())
+        torch.testing.assert_close(got.to(torch.bfloat16), want, rtol=0, atol=0)

@@ -20,6 +20,7 @@ from content_aware_gan_compression_tpu.utils.logging import ExperimentLogger as 
 from content_aware_gan_compression_torch.models import Generator, GeneratorConfig
 from content_aware_gan_compression_torch.utils import analysis, calculators as calc
 from content_aware_gan_compression_torch.utils import state_dict_from_jax
+from torch_train_util import _jit_init
 from torch_train_util import torch_threads  # noqa: F401
 
 SHAPES = {
@@ -92,7 +93,7 @@ def test_log_extractors_match_jax(tmp_path):
 @pytest.mark.parametrize("layer_id", [0, 1, 4, 7])
 def test_channel_activation_image_matches_jax(layer_id):
     jcfg = JaxGeneratorConfig(**SHAPES["tiny32"])
-    params = jax.tree_util.tree_map(np.asarray, generator_init(jax.random.PRNGKey(0), jcfg))
+    params = _jit_init(generator_init, 0, jcfg)
     rng = np.random.RandomState(1)
     for block in [params["conv1"], *params["convs"].values()]:
         block["noise"]["weight"] = rng.randn(1).astype(np.float32)

@@ -7,6 +7,9 @@ skips without one. Run them on the card with
 (``--noconftest``: the suite's conftest imports JAX, which the card's
 machine need not have). This file imports no JAX."""
 
+import contextlib
+import importlib
+
 import pytest
 import torch
 
@@ -141,16 +144,22 @@ def test_masked_scale_kernel_matches_plain(dev, shape, offset):
 
 def _plain_twin(fn_kernel, fn_plain, *args):
     """First and second derivatives of sum(f^3) through the Function on the
-    card and through the plain version under autograd, on the same inputs."""
+    card and through the plain version under autograd, on the same inputs.
+    The cube and the squares run in float32 at least, so that in bfloat16
+    the two sides round only inside the functions held against each other."""
     results = []
     for fn in (fn_kernel, fn_plain):
         xs = [a.detach().clone().requires_grad_(a.requires_grad) for a in args]
         y = fn(*xs)
         wrt = [x for x in xs if x.requires_grad]
-        g = torch.autograd.grad(y.pow(3).sum(), wrt, create_graph=True)
-        gg = torch.autograd.grad(sum(t.pow(2).sum() for t in g), wrt)
+        g = torch.autograd.grad(_f32_up(y).pow(3).sum(), wrt, create_graph=True)
+        gg = torch.autograd.grad(sum(_f32_up(t).pow(2).sum() for t in g), wrt)
         results.append((g, gg))
     return results
+
+
+def _f32_up(t):
+    return t.to(torch.promote_types(t.dtype, torch.float32))
 
 
 @pytest.mark.parametrize("shape,pad,gain", [
@@ -216,3 +225,182 @@ def test_generator_on_card_launches_the_kernels_and_matches_the_cpu(dev):
         torch.backends.cudnn.allow_tf32 = tf32
     assert launches == (cfg.log_size - 2, cfg.num_layers)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+# -- bfloat16 -------------------------------------------------------------------
+
+BF16_EPS = 2.0 ** -7  # the spacing of bfloat16 values in [1, 2)
+
+
+@pytest.mark.parametrize("shape,pad,gain", [
+    ((2, 9, 9, 512), (1, 1), 4.0), ((2, 17, 17, 256), (1, 1), 4.0),
+    ((2, 32, 32, 128), (2, 2), 1.0), ((3, 13, 9, 3), (2, 1), 1.0),
+    ((2, 10, 15, 130), (1, 1), 1.0), ((2, 17, 11, 12), (2, 2), 4.0),
+    *[(s, (1, 1), 4.0) for s in STUDENT_BLURS],
+    ((2, 19, 13, 8), (0, 3), 1.0), ((2, 13, 19, 8), (3, 0), 1.0),
+    *[((3, 21, 11, c), (2, 1), 1.0) for c in range(1, 6)],
+])
+def test_blur4_bf16_kernel_equals_plain(dev, shape, pad, gain):
+    """Both sum in float32 in one order, a multiply then an add per tap, and
+    round once: bit for bit."""
+    x = torch.randn(shape, generator=torch.Generator(dev).manual_seed(0), device=dev)
+    x = x.to(torch.bfloat16)
+    k = torch.arange(16, dtype=torch.float32).reshape(4, 4) / 120
+    reset_counts()
+    got = blur4(x, k, pad, gain)
+    assert counts()["blur4_bf16"] == counts()["blur4"] == 1
+    torch.testing.assert_close(got, blur4_plain(x, correlation_taps(k, gain), pad), rtol=0,
+                               atol=0)
+
+
+@pytest.mark.parametrize("c,offset,lanes", [
+    (128, 0, 8), (512, 0, 8), (154, 0, 2), (130, 0, 2), (77, 0, 1), (39, 0, 1),
+    (128, 1, 1), (128, 2, 2), (128, 8, 8), (12, 4, 2),
+])
+def test_blur4_bf16_lanes(dev, c, offset, lanes):
+    """16-byte lanes (8 values) when C % 8 == 0 and the input is 16-byte
+    aligned, pairs when C is even and it is 4-byte aligned, else single
+    values; each bit for bit the plain version. ``offset`` is in
+    elements."""
+    from content_aware_gan_compression_torch.ops.cuda import lane_width
+
+    x = _view((2, 9, 10, c), offset, dev, 6).to(torch.bfloat16)
+    x = torch.cat([x.new_zeros(offset), x.reshape(-1)])[offset:].view(x.shape)
+    assert lane_width(c, x.data_ptr(), itemsize=2) == lanes
+    k = make_kernel([1, 3, 3, 1])
+    reset_counts()
+    got = blur4(x, k, (1, 1), 4.0)
+    assert counts()["blur4_vector_bf16"] == counts()["blur4_vector"] == (lanes == 8)
+    torch.testing.assert_close(got, blur4_plain(x, correlation_taps(k, 4.0), (1, 1)), rtol=0,
+                               atol=0)
+
+
+@pytest.mark.parametrize("shape,noise_batch", [
+    ((16, 4, 4, 512), 16), ((2, 64, 64, 512), 2), ((16, 8, 8, 154), 16), ((2, 5, 7, 3), 2),
+    ((2, 6, 6, 130), 1),
+])
+def test_fused_bf16_kernel_equals_plain(dev, shape, noise_batch):
+    """float32 arithmetic in the plain version's order, one rounding at the
+    end: bit for bit."""
+    gen = torch.Generator(dev).manual_seed(1)
+    bf = torch.bfloat16
+    x = torch.randn(shape, generator=gen, device=dev).to(bf)
+    noise = torch.randn((noise_batch, *shape[1:3], 1), generator=gen, device=dev).to(bf)
+    bias = torch.randn(shape[3], generator=gen, device=dev).to(bf)
+    nw = torch.tensor([0.7], device=dev).to(bf)
+    reset_counts()
+    got = fused_noise_bias_lrelu(x, noise, bias, nw)
+    assert counts()["fused_noise_bias_lrelu_bf16"] == 1 and got.dtype == bf
+    torch.testing.assert_close(got, fused_noise_bias_lrelu_plain(x, noise, bias, nw),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("shape,offset", [
+    ((16, 8, 8, 154), 0), ((8, 64, 64, 77), 0), ((4, 32, 32, 39), 0), ((3, 5, 7, 3), 0),
+    ((2, 6, 6, 130), 1),
+])
+def test_masked_scale_bf16_kernel_equals_plain(dev, shape, offset):
+    gen = torch.Generator(dev).manual_seed(2)
+    n = torch.Size(shape).numel()
+    g = torch.randn(n + offset, generator=gen, device=dev).to(torch.bfloat16)[offset:]
+    out = torch.randn(n + offset, generator=gen, device=dev).to(torch.bfloat16)[offset:]
+    g, out = g.view(shape), out.view(shape)
+    out.view(-1)[:5] = 0.0
+    reset_counts()
+    got = masked_scale(g, out)
+    assert counts()["masked_scale_bf16"] == 1
+    torch.testing.assert_close(got, masked_scale_plain(g, out), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("shape,pad,gain", [
+    ((4, 9, 9, 154), (1, 1), 4.0), ((4, 64, 64, 64), (2, 2), 1.0),
+    ((2, 11, 7, 3), (2, 1), 4.0), (STUDENT_BLURS[-1], (1, 1), 4.0),
+])
+def test_blur4_bf16_backward_to_second_order(dev, shape, pad, gain):
+    """bfloat16 first and second derivatives within 2^-7 of the plain
+    version's largest value."""
+    x = torch.randn(shape, generator=torch.Generator(dev).manual_seed(3), device=dev)
+    x = x.to(torch.bfloat16).requires_grad_(True)
+    k = torch.arange(16, dtype=torch.float32).reshape(4, 4) / 120
+    reset_counts()
+    (g, gg), (pg, pgg) = _plain_twin(lambda x: blur4(x, k, pad, gain),
+                                     lambda x: blur4_plain(x, correlation_taps(k, gain), pad), x)
+    assert counts()["blur4_backward_bf16"] == counts()["blur4_backward"] >= 2
+    for a, b in ((g[0], pg[0]), (gg[0], pgg[0])):
+        assert a.dtype == torch.bfloat16
+        torch.testing.assert_close(a.float(), b.float(), rtol=0,
+                                   atol=BF16_EPS * b.float().abs().max().item())
+
+
+@contextlib.contextmanager
+def plain_routes():
+    """The three wrappers take their plain versions on the card too, inside
+    the same autograd Functions: the kernels' arithmetic swapped for the
+    plain one, the backward's structure kept."""
+    b4 = importlib.import_module("content_aware_gan_compression_torch.ops.cuda.blur4")
+    fn = importlib.import_module(
+        "content_aware_gan_compression_torch.ops.cuda.fused_noise_bias_lrelu")
+    ms = importlib.import_module("content_aware_gan_compression_torch.ops.cuda.masked_scale")
+
+    def plain_ms(g, out):
+        return masked_scale_plain(g, out)
+    plain_ms.grad_copies = 0
+    saved = b4._run, fn._run, ms.masked_scale
+    b4._run = lambda x, taps, pad, backward: blur4_plain(x, taps, pad)
+    fn._run, ms.masked_scale = fused_noise_bias_lrelu_plain, plain_ms
+    try:
+        yield
+    finally:
+        b4._run, fn._run, ms.masked_scale = saved
+
+
+def _function_twin(fn, *args):
+    """_plain_twin of ``fn`` with the kernels and of ``fn`` under
+    ``plain_routes``."""
+    with plain_routes():
+        plain = _plain_twin(fn, fn, *args)[0]
+    return _plain_twin(fn, fn, *args)[0], plain
+
+
+@pytest.mark.parametrize("shape,noise_batch", [((16, 8, 8, 154), 16), ((8, 32, 32, 39), 1)])
+def test_epilogue_bf16_backward_to_second_order(dev, shape, noise_batch):
+    """In bfloat16 the backward sums the rounded dx for the noise, bias and
+    noise-weight gradients, as the JAX package's _bwd_vjp does, where
+    autograd of the plain expression sums the unrounded one; a second order
+    makes that up to 1.3% of its largest value at these shapes. So the
+    kernels are held, to 2^-7 of the largest value, against the same
+    Function with the plain versions in their place."""
+    gen = torch.Generator(dev).manual_seed(4)
+    bf = torch.bfloat16
+    x = torch.randn(shape, generator=gen, device=dev).to(bf).requires_grad_(True)
+    noise = torch.randn((noise_batch, *shape[1:3], 1), generator=gen, device=dev).to(bf)
+    noise.requires_grad_(True)
+    bias = torch.randn(shape[3], generator=gen, device=dev).to(bf).requires_grad_(True)
+    nw = torch.tensor([0.7], device=dev).to(bf).requires_grad_(True)
+    reset_counts()
+    (g, gg), (pg, pgg) = _function_twin(fused_noise_bias_lrelu, x, noise, bias, nw)
+    assert counts()["fused_noise_bias_lrelu_bf16"] == 1 and counts()["masked_scale_bf16"] >= 2
+    for a, b in (*zip(g, pg), *zip(gg, pgg)):
+        assert a.dtype == bf
+        torch.testing.assert_close(a.float(), b.float(), rtol=0,
+                                   atol=BF16_EPS * b.float().abs().max().item())
+
+
+def test_bf16_generator_launches_only_bf16_kernels(dev):
+    """The generator in bfloat16 on the card: every blur4 and epilogue launch
+    is a bfloat16 one, and its image is near the float32 image."""
+    cfg = GeneratorConfig(size=32, style_dim=16, n_mlp=2, net_shape=(32, 24, 24, 16, 16, 12, 12, 8))
+    g = Generator(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+    gen = torch.Generator(dev).manual_seed(1)
+    z = torch.randn(2, cfg.style_dim, generator=gen, device=dev)
+    noise = g.make_noise(2, gen)
+    with torch.inference_mode():
+        want = g([z], noise=noise)
+        reset_counts()
+        got = g([z], noise=noise, dtype=torch.bfloat16)
+        c = counts()
+    assert c["blur4"] == c["blur4_bf16"] == cfg.log_size - 2
+    assert c["fused_noise_bias_lrelu"] == c["fused_noise_bias_lrelu_bf16"] == cfg.num_layers
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want, rtol=0, atol=0.1 * want.abs().max().item())
+

@@ -18,6 +18,7 @@ from content_aware_gan_compression_torch.models import (
     Generator, GeneratorConfig, default_net_shape, net_shape_from_params,
 )
 from content_aware_gan_compression_torch.utils import state_dict_from_jax
+from torch_train_util import _jit_init
 from torch_train_util import torch_threads  # noqa: F401
 
 ATOL = 1e-4
@@ -29,12 +30,12 @@ CONFIGS = {
 
 
 def _jax_tree(name, seed=0):
-    """generator_init params as numpy, with the noise weights, activation
+    """generator_init params as numpy (jitted: the same draws as eagerly,
+    one compile instead of one per op), with the noise weights, activation
     biases and ToRGB biases (zero at init) set to random values so the
     epilogue's every term is exercised."""
     cfg = JaxGeneratorConfig(**CONFIGS[name])
-    params = jax.tree_util.tree_map(
-        np.asarray, generator_init(jax.random.PRNGKey(seed), cfg))
+    params = _jit_init(generator_init, seed, cfg)
     rng = np.random.RandomState(seed)
     for block in [params["conv1"], *params["convs"].values()]:
         block["noise"]["weight"] = rng.randn(1).astype(np.float32)
@@ -73,7 +74,8 @@ def test_forward_parity_fixed_z_and_noise(pair):
     rng = np.random.RandomState(1)
     z = rng.randn(3, jcfg.style_dim).astype(np.float32)
     noise = _noise(jcfg, 3, 2)
-    want = np.asarray(generator_apply(params, jcfg, [jnp.asarray(z)], noise=_j(noise)))
+    want = np.asarray(jax.jit(lambda p, z, n: generator_apply(p, jcfg, [z], noise=n))(
+        params, jnp.asarray(z), _j(noise)))
     with torch.no_grad():
         got = g([torch.from_numpy(z)], noise=_t(noise)).numpy()
     assert got.shape == want.shape == (3, 3, 32, 32)
@@ -86,10 +88,11 @@ def test_truncation_and_tensor_inject_index_mixing(pair):
     z1, z2 = (rng.randn(2, jcfg.style_dim).astype(np.float32) for _ in range(2))
     mean = rng.randn(1, jcfg.style_dim).astype(np.float32)
     noise = _noise(jcfg, 2, 4)
+    mixed = jax.jit(lambda p, zs, idx, mean, n: generator_apply(
+        p, jcfg, zs, inject_index=idx, truncation=0.7, truncation_latent=mean, noise=n))
     for idx in (1, 3, jcfg.n_latent - 1):
-        want = np.asarray(generator_apply(
-            params, jcfg, [jnp.asarray(z1), jnp.asarray(z2)], inject_index=jnp.asarray(idx),
-            truncation=0.7, truncation_latent=jnp.asarray(mean), noise=_j(noise)))
+        want = np.asarray(mixed(params, [jnp.asarray(z1), jnp.asarray(z2)], jnp.asarray(idx),
+                                jnp.asarray(mean), _j(noise)))
         with torch.no_grad():
             got = g([torch.from_numpy(z1), torch.from_numpy(z2)],
                     inject_index=torch.tensor(idx), truncation=0.7,
@@ -101,9 +104,9 @@ def test_buffer_noise_latent_input_rgb_list_and_latents(pair):
     jcfg, params, g = pair
     rng = np.random.RandomState(5)
     w = rng.randn(2, jcfg.style_dim).astype(np.float32)
-    want_list, want_lat = generator_apply(
-        params, jcfg, latent_styles=[jnp.asarray(w)], input_is_latent=True,
-        randomize_noise=False, return_rgb_list=True, return_latents=True)
+    want_list, want_lat = jax.jit(lambda p, w: generator_apply(
+        p, jcfg, latent_styles=[w], input_is_latent=True, randomize_noise=False,
+        return_rgb_list=True, return_latents=True))(params, jnp.asarray(w))
     with torch.no_grad():
         got_list, got_lat = g([torch.from_numpy(w)], input_is_latent=True,
                               randomize_noise=False, return_rgb_list=True,
@@ -117,7 +120,8 @@ def test_buffer_noise_latent_input_rgb_list_and_latents(pair):
 def test_get_latent_parity(pair):
     jcfg, params, g = pair
     z = np.random.RandomState(6).randn(4, jcfg.style_dim).astype(np.float32)
-    want = np.asarray(generator_get_latent(params, jcfg, jnp.asarray(z)))
+    want = np.asarray(jax.jit(lambda p, z: generator_get_latent(p, jcfg, z))(
+        params, jnp.asarray(z)))
     with torch.no_grad():
         got = g.get_latent(torch.from_numpy(z)).numpy()
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)

@@ -45,13 +45,18 @@ def _optax_run(fn, x0):
     with jax.enable_x64(True):
         tx = optax.lbfgs()
         value_and_grad = optax.value_and_grad_from_state(fn)
+
+        @jax.jit  # one compile for the 15 iterations, not one dispatch per op
+        def iterate(x, state):
+            value, grad = value_and_grad(x, state=state)
+            updates, state = tx.update(grad, state, x, value=value, grad=grad, value_fn=fn)
+            return optax.apply_updates(x, updates), state
+
         x = jnp.asarray(x0, jnp.float64)
         state = tx.init(x)
         xs, steps, evals = [], [], []
         for _ in range(N_ITERS):
-            value, grad = value_and_grad(x, state=state)
-            updates, state = tx.update(grad, state, x, value=value, grad=grad, value_fn=fn)
-            x = optax.apply_updates(x, updates)
+            x, state = iterate(x, state)
             xs.append(np.asarray(x))
             steps.append(float(state[2].learning_rate))
             evals.append(int(state[2].info.num_linesearch_steps))

@@ -20,6 +20,8 @@ scalars against the JAX package's, on the CPU:
   sample latents and grid.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import jax
@@ -62,11 +64,11 @@ def test_style_scalars_match_jax(size, net_shape):
     zs = [rng.randn(3, STYLE).astype(np.float32) for _ in range(2)]
     noise = [rng.randn(3, 2 ** ((i + 5) // 2), 2 ** ((i + 5) // 2), 1).astype(np.float32)
              for i in range(cfg.num_layers)]
+    jax_fn = jax.jit(lambda p, z, n, i: generator_apply(  # one trace for both indices
+        p, cfg, z, inject_index=i, noise=n, return_style_scalars=True))
     for index in (2, cfg.n_latent - 1):
-        img_j, styles_j = jax.jit(lambda p, z, n, i: generator_apply(
-            p, cfg, z, inject_index=i, noise=n, return_style_scalars=True))(
-            tree, [jnp.asarray(z) for z in zs], [jnp.asarray(n) for n in noise],
-            jnp.asarray(index))
+        img_j, styles_j = jax_fn(tree, [jnp.asarray(z) for z in zs],
+                                 [jnp.asarray(n) for n in noise], jnp.asarray(index))
         with torch.no_grad():
             img, styles = g([torch.from_numpy(z) for z in zs], inject_index=torch.tensor(index),
                             noise=[torch.from_numpy(n) for n in noise],
@@ -117,7 +119,10 @@ def test_avg_pool_to_256_matches_jax():
     assert sparsity.avg_pool_to_256(y, 256) is y
 
 
+@functools.cache
 def _scores(size=16, net_shape=(16, 16, 12, 12, 8, 8)):
+    """Both packages' l1-style scores of one generator, computed once for the
+    two mask tests (which only read them)."""
     cfg = JaxGeneratorConfig(size=size, style_dim=STYLE, n_mlp=N_MLP, net_shape=net_shape)
     tree = generator_tree(1, cfg)
     g = build_generator_from_state_dict(tree, size, STYLE, N_MLP, device="cpu")

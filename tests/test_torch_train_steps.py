@@ -114,7 +114,7 @@ def test_d_step_matches(setup):
     key = jax.random.PRNGKey(11)
     draws = d_draws(key, s["jcfg"])
     real = jnp.asarray(s["real"])
-    fake = _fake_j(s["gp"], draws)
+    fake = jax.jit(lambda gp: _fake_j(gp, draws))(s["gp"])  # one compile, not one per op
 
     def loss_j(dp):
         return jax_d_logistic_loss(discriminator_apply(dp, D_CFG, real, data_format="NHWC"),
@@ -184,9 +184,9 @@ def test_g_step_matches(setup, objective):
         parser = build_bisenet_from_state_dict(parse_tree, device="cpu")
         parser.requires_grad_(False).eval()
     draws = g_draws(key, cfg)
-    teacher_img = generator_apply(s["tp"], T_CFG, _j(draws["z"]),
-                                  inject_index=jnp.asarray(draws["inject_index"].numpy()),
-                                  noise=_j(draws["teacher_noise"]), output_format="NHWC")
+    teacher_img = jax.jit(lambda tp: generator_apply(
+        tp, T_CFG, _j(draws["z"]), inject_index=jnp.asarray(draws["inject_index"].numpy()),
+        noise=_j(draws["teacher_noise"]), output_format="NHWC"))(s["tp"])
 
     def loss_j(gp):
         fake = _fake_j(gp, draws)
@@ -285,9 +285,9 @@ def test_reg_ratio_adam_matches_the_jax_transform_for_three_steps(ratio_of):
     assert "exp_avg" not in opt.state[tensors["a"]]  # no first-moment buffer
 
 
-def test_ema_matches():
-    g = build_generator_from_state_dict(jax_params()[0], SIZE, STYLE, N_MLP, device="cpu")
-    ema = build_generator_from_state_dict(jax_params()[0], SIZE, STYLE, N_MLP, device="cpu")
+def test_ema_matches(setup):
+    g = build_generator_from_state_dict(setup["gp"], SIZE, STYLE, N_MLP, device="cpu")
+    ema = build_generator_from_state_dict(setup["gp"], SIZE, STYLE, N_MLP, device="cpu")
     with torch.no_grad():
         for p in g.parameters():
             p.add_(0.1)
