@@ -132,6 +132,28 @@ Phases, each of which exits non-zero on failure:
      absent): the printed scores and the side-by-side PNG.
  25. ``python -m content_aware_gan_compression_torch.bench`` with its
      defaults (bfloat16, full_kd, 64 iterations after 33): its one JSON line.
+ 26. the training data path on the card's host: 64 seeded PNGs at 512px and
+     64 at 256px (``write_png``); the native batch transform's build seconds
+     and its images/s at 512 -> 256, batch 16, with the host's threads,
+     beside the images/s that bfloat16 full_kd takes (the bench's rate x
+     16); the loader's float (512px folder) and uint8 (256px folder, cache)
+     rates, each loader's first line naming the decoder; read_png on a
+     Paeth-filtered 1024px PNG; ``prepare_data --format uint8`` against
+     ``FFHQDataset.load_uint8``; the train CLI from the 256px folder with no
+     cache for 5 iterations (11x student, full teacher), launches per phase
+     against train_phase_launches; ``SparsityTrainer.run`` from the 512px
+     folder for 2 iterations (float NCHW batches through the transform);
+ 27. ``train_time_profiler`` at 256px in bfloat16 for 8 iterations: each
+     phase's mean ms and calls (R1 once, path length twice), every launch a
+     bfloat16 one;
+ 28. ``convert_weight`` on seeded TF variables at 256px, full widths, with
+     dlatent_avg: its 16-image render on the card against the same CLI on
+     the CPU to 1e-3 (TF32 off, cuDNN deterministic), 6 blur4 and 13
+     epilogue launches, then the generate CLI on the converted .npz;
+ 29. ``ModulatedConv2d(downsample=True)`` on [16, 256, 256, 128] in float32
+     and bfloat16 against the same conv with the plain blur (float32 1e-5
+     of the largest value, bfloat16 bit for bit), one blur4 launch with pad
+     (2, 2) each.
 bfloat16, between phases 5 and 8: ``bf16_kernels_vs_plain`` (5b: the
 three kernels in bfloat16 against their plain versions, forward bit for bit
 at the generator's, the student's and D's shapes, backward and double
@@ -2022,6 +2044,401 @@ def bf16_train_phases(student, teacher, parser, reals, want_phase, dev):
     return launches, rates
 
 
+# -- the data path, the profiler, the converter and the down conv ---------------
+DATA_IMAGES = 64  # seeded PNGs at each of 512px and 256px
+DATA_RATE_BATCHES = 12  # batches of BATCH taken to time a loader
+DATA_TRAIN_ITERS = 5
+PROFILER_ITERS = 8
+FULL_KD_ITERS_PER_S = 3.6  # bf16 full_kd on an H100 80GB HBM3 at 700 W (PERF.md)
+
+
+def total_launches(counts, name):
+    """A kernel's launches in ``counts``: blur4's forward and backward."""
+    return counts["blur4"] + counts["blur4_backward"] if name == "blur4" else counts[name]
+
+
+def write_pngs(folder, side, n, seed):
+    """``n`` seeded 8-bit RGB PNGs of ``side`` pixels, written by ``write_png``
+    (row filter 0)."""
+    from content_aware_gan_compression_torch.utils.logging import write_png
+
+    os.makedirs(folder)
+    rng = np.random.RandomState(seed)
+    for i in range(n):
+        # smooth, photo-like content with noise, so that zlib has work to do
+        yy, xx = np.mgrid[0:side, 0:side] / side
+        base = np.stack([np.sin(6 * xx + i), np.cos(5 * yy - i), np.sin(4 * (xx + yy))], -1)
+        img = 127.5 * (base + 1) + rng.normal(0, 12, (side, side, 3))
+        write_png(os.path.join(folder, f"{i:05d}.png"), img.clip(0, 255).astype(np.uint8))
+    return folder
+
+
+def loader_rate(loader, n_batches):
+    """Images/s of ``n_batches`` batches from a fresh loader, start-up
+    included; the loader is closed after."""
+    t0 = time.perf_counter()
+    try:
+        shapes = {tuple(next(loader).shape) for _ in range(n_batches)}
+    finally:
+        loader.close()
+    return {"images_per_s": n_batches * BATCH / (time.perf_counter() - t0),
+            "batches": n_batches, "shapes": sorted(shapes)}
+
+
+def data_phases(dev, card, work, bench_line):
+    """26. The training data path without the JAX package on the card's host:
+    seeded PNG folders, the native transform's build and rate, the loader's
+    rates, one Paeth-filtered 1024px PNG through read_png, prepare_data's
+    uint8 cache against FFHQDataset, the train CLI from a folder with no
+    cache (launches per phase against train_phase_launches), and
+    SparsityTrainer.run from a 512px folder (float NCHW batches through the
+    native transform). Returns the kernels line's launch counts."""
+    import importlib.util
+    import io
+
+    from content_aware_gan_compression_torch import prepare_data
+    from content_aware_gan_compression_torch.data import (
+        FFHQDataset, data_loader, native_loader, open_dataset)
+    from content_aware_gan_compression_torch.ops.cuda import reset_counts
+    from content_aware_gan_compression_torch.train import loop as train_loop
+    from content_aware_gan_compression_torch.train.__main__ import main as train_main
+    from content_aware_gan_compression_torch.train.sparsity import SparsityTrainer
+    from content_aware_gan_compression_torch.utils import ExperimentLogger
+    from content_aware_gan_compression_torch.utils.logging import read_png, write_png
+
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    threads = os.cpu_count()
+    pillow = importlib.util.find_spec("PIL") is not None
+    t0 = time.time()
+    big = write_pngs(os.path.join(work, "png512"), 512, DATA_IMAGES, seed=11)
+    small = write_pngs(os.path.join(work, "png256"), SIZE, DATA_IMAGES, seed=12)
+    write_s = time.time() - t0
+
+    # the native transform: its build, then 512 -> 256 at batch 16
+    prebuilt = native_loader.library_path().exists()
+    t0 = time.time()
+    native_loader.build()
+    build_s = time.time() - t0
+    ds512 = FFHQDataset(big, SIZE)
+    raw = np.stack([ds512.decode(i) for i in range(BATCH)])
+    flips = (np.random.RandomState(0).rand(BATCH) < 0.5).astype(np.uint8)
+    native_loader.transform_batch(raw, SIZE, flips, threads)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        out = native_loader.transform_batch(raw, SIZE, flips, threads)
+    transform_ips = 5 * BATCH / (time.perf_counter() - t0)
+    if out.shape != (BATCH, 3, SIZE, SIZE) or not (-1 <= out.min() <= out.max() <= 1):
+        fail(f"transform_batch gave {out.shape} in [{out.min()}, {out.max()}]")
+
+    # read_png on a Paeth-filtered 1024px PNG (Pillow's encoder picks
+    # adaptive filters, mostly Paeth, for photos), against filter 0
+    arr = np.random.RandomState(13).randint(0, 256, (1024, 1024, 3), dtype=np.uint8)
+    decode_s = {}
+    for name, ftype in (("none", 0), ("paeth", 4)):
+        path = os.path.join(work, f"big_{name}.png")
+        write_png(path, arr, filter_type=ftype)
+        t0 = time.perf_counter()
+        back = read_png(path)
+        decode_s[name] = time.perf_counter() - t0
+        if not np.array_equal(back, arr):
+            fail(f"read_png of the filter-{ftype} 1024px PNG differs from what was written")
+
+    # prepare_data's uint8 cache against FFHQDataset's reads
+    caches = os.path.join(work, "caches")
+    t0 = time.time()
+    with contextlib.redirect_stdout(io.StringIO()):
+        prepare_data.main(["--out", caches, "--size", str(SIZE), "--format", "uint8",
+                           "--n_worker", str(threads), small])
+    prepare_s = time.time() - t0
+    cache = os.path.join(caches, f"uint8_cache_{SIZE}.npy")
+    ds256 = FFHQDataset(small, SIZE, random_flip=False)
+    if not np.array_equal(np.load(cache), np.stack([ds256.load_uint8(i, None)
+                                                    for i in range(len(ds256))])):
+        fail("prepare_data's uint8 cache differs from FFHQDataset.load_uint8")
+
+    # the loaders' rates, start-up included
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        rates = {
+            "float_512px_folder_to_256": loader_rate(data_loader(
+                FFHQDataset(big, SIZE), BATCH, num_workers=threads), DATA_RATE_BATCHES),
+            "uint8_256px_folder": loader_rate(data_loader(
+                FFHQDataset(small, SIZE), BATCH, num_workers=threads, uint8_hwc=True),
+                DATA_RATE_BATCHES),
+            "uint8_cache": loader_rate(data_loader(
+                open_dataset(cache, SIZE), BATCH, num_workers=threads, uint8_hwc=True),
+                DATA_RATE_BATCHES)}
+    loader_lines = log.getvalue().strip().splitlines()
+    want_decoder = "Pillow" if pillow else "read_png"
+    if sum(f"decoder {want_decoder}" in ln for ln in loader_lines) != 2:
+        fail(f"the loaders' first lines do not name the decoder {want_decoder}: {loader_lines}")
+    needed = {"pr8_full_kd_bf16": FULL_KD_ITERS_PER_S * BATCH,
+              "this_run_bench": bench_line["value"] * BATCH}
+    detail("data_path", card=card, host_threads=threads, pillow=pillow,
+           png_write_s=round(write_s, 3), native_build_s=build_s, native_prebuilt=prebuilt,
+           transform_512_to_256_images_per_s=transform_ips, loader=rates,
+           loader_first_lines=loader_lines, read_png_1024px_s=decode_s,
+           prepare_data_uint8_s=prepare_s,
+           images_per_s_needed_by_full_kd_bf16=needed,
+           transform_over_needed=transform_ips / max(needed.values()))
+
+    # the train CLI from the 256px folder, no cache: launches per phase
+    student, teacher = write_train_checkpoints(work, SIZE)
+    want_phase = train_phase_launches(int(np.log2(SIZE)))
+    phases = []
+    run = train_loop.Trainer.run
+
+    def counted_run(self, **kw):
+        return run(self, **kw, phase_hook=phase_counter(phases))
+
+    absent = os.path.join(work, "absent.pth")
+    root = os.path.join(work, "cli_folder")
+    out = io.StringIO()
+    train_loop.Trainer.run = counted_run
+    try:
+        reset_counts()
+        t0 = time.time()
+        with contextlib.redirect_stdout(out):
+            train_main(["--path", small, "--size", str(SIZE), "--ckpt", student,
+                        "--teacher_ckpt", teacher, "--batch_size", str(BATCH),
+                        "--iter", str(DATA_TRAIN_ITERS), "--n_sample", "4",
+                        "--val_sample_freq", "1000", "--model_save_freq", "1000",
+                        "--parsing_ckpt", absent, "--lpips_vgg_ckpt", absent,
+                        "--exp_root", root])
+        torch.cuda.synchronize()
+        cli_s = time.time() - t0
+    finally:
+        train_loop.Trainer.run = run
+    keys = ("blur4", "blur4_backward", "blur4_vector", "fused_noise_bias_lrelu", "masked_scale")
+    k, e = int(np.log2(SIZE)) - 2, 2 * int(np.log2(SIZE)) - 3
+    bad, cli_launches = [], dict.fromkeys(keys, 0)
+    for name, c in phases:
+        want = ({**dict.fromkeys(keys, 0), "blur4": k, "fused_noise_bias_lrelu": e}
+                if name == "sample" else want_phase[name])
+        if {kk: c[kk] for kk in keys} != want:
+            bad.append((name, {kk: c[kk] for kk in keys}, want))
+        for kk in keys:
+            cli_launches[kk] += c[kk]
+    (exp,) = [os.path.join(root, d) for d in os.listdir(root) if d.startswith("Exp_")]
+    with open(os.path.join(exp, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    names = [n for n, _ in phases]
+    cli_lines = [ln for ln in out.getvalue().splitlines() if ln.startswith("data_loader:")]
+    detail("data_train_cli", size=SIZE, batch=BATCH, iterations=DATA_TRAIN_ITERS,
+           seconds=round(cli_s, 3), phases=names, launches=cli_launches, bad_phases=bad,
+           loader_line=cli_lines, metrics=[{kk: r[kk] for kk in ("iter", "d", "g", "kd_l1_loss")}
+                                           for r in recs], tf32=torch.backends.cudnn.allow_tf32)
+    if bad or names.count("d_reg") != 1 or names.count("g_reg") != 2:
+        fail(f"train CLI from a folder: launches {bad}, phases {names}")
+    if ([r["iter"] for r in recs] != list(range(DATA_TRAIN_ITERS))
+            or not all(np.isfinite(v) for r in recs for v in r.values())):
+        fail(f"train CLI from a folder: metrics {recs}")
+    if os.path.exists(os.path.join(small, f"uint8_cache_{SIZE}.npy")) or len(cli_lines) != 1:
+        fail(f"train CLI from a folder: a cache was written or the loader line is {cli_lines}")
+
+    # SparsityTrainer.run from the 512px folder: float NCHW batches resized
+    # 512 -> 256 by the native transform
+    trainer = SparsityTrainer(sparsity_config(SIZE, BATCH, student, big, teacher=teacher),
+                              {**SPARSITY_OPTS, "model_prune_freq": 1000}, device=dev,
+                              lpips_params=seeded_lpips())
+    phases = []
+    logger = ExperimentLogger(work, name="sparsity_folder")
+    reset_counts()
+    t0 = time.time()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        trainer.run(max_iters=2, logger=logger, phase_hook=phase_counter(phases))
+    torch.cuda.synchronize()
+    sparse_s = time.time() - t0
+    logger.close()
+    with open(os.path.join(logger.exp_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    want_sparse = sparse_phase_launches(int(np.log2(SIZE)), STUDENT_SHAPE)
+    sparse_launches, bad = dict.fromkeys(keys, 0), []
+    for name, c in phases:
+        if name != "sample" and {kk: c[kk] for kk in keys} != want_sparse[name]:
+            bad.append((name, {kk: c[kk] for kk in keys}, want_sparse[name]))
+        for kk in keys:
+            sparse_launches[kk] += c[kk]
+    float_line = [ln for ln in out.getvalue().splitlines() if ln.startswith("data_loader:")]
+    detail("data_sparsity_folder", size=SIZE, batch=BATCH, folder_px=512, iterations=2,
+           seconds=round(sparse_s, 3), phases=[n for n, _ in phases], launches=sparse_launches,
+           bad_phases=bad, loader_line=float_line,
+           metrics=[{kk: r[kk] for kk in ("iter", "g", "sparse", "kd_percept_loss")}
+                    for r in recs])
+    if (bad or [r["iter"] for r in recs] != [0, 1] or len(float_line) != 1
+            or "float32 [B, 3, H, W]" not in float_line[0]
+            or not all(np.isfinite(v) for r in recs for v in r.values())):
+        fail(f"SparsityTrainer from a 512px folder: {bad} {recs} {float_line}")
+    shutil.rmtree(work)
+    return {"train_cli_folder": cli_launches, "sparsity_folder": sparse_launches}
+
+
+def profiler_phase(card):
+    """27. train_time_profiler at 256px in bfloat16 over PROFILER_ITERS
+    iterations: each phase's mean ms and calls (R1 at iteration 0, path
+    length at 0 and 4), every launch a bfloat16 one. Returns the launches."""
+    import io
+
+    from content_aware_gan_compression_torch import train_time_profiler
+    from content_aware_gan_compression_torch.ops.cuda import counts, reset_counts
+
+    reset_counts()
+    t0 = time.time()
+    with contextlib.redirect_stdout(io.StringIO()):
+        report = train_time_profiler.main(["--size", str(SIZE), "--batch_size", str(BATCH),
+                                           "--iters", str(PROFILER_ITERS)])
+    seconds = time.time() - t0
+    launched = counts()
+    calls = {k: v["calls"] for k, v in report.items() if isinstance(v, dict) and "calls" in v}
+    detail("profiler_path", card=card, size=SIZE, batch=BATCH, dtype="bfloat16",
+           iterations=PROFILER_ITERS, seconds=round(seconds, 1), report=report,
+           launches=launched, note="PyTorch's defaults (cuDNN TF32 on for float32 work)")
+    want_calls = {"data": PROFILER_ITERS, "d_step": PROFILER_ITERS, "d_reg_step": 1,
+                  "g_step": PROFILER_ITERS, "g_reg_step": 2, "ema": PROFILER_ITERS}
+    bf16_only = all(launched[k] == launched[f"{k}_bf16"] for k in
+                    ("blur4", "blur4_backward", "fused_noise_bias_lrelu", "masked_scale"))
+    if calls != want_calls or not bf16_only or not launched["blur4"]:
+        fail(f"train_time_profiler: calls {calls}, want {want_calls}; launches {launched}")
+    return launched
+
+
+def tf_generator_vars(size, seed):
+    """Seeded TF-StyleGAN2 generator variables under the official names, at
+    the full widths of ``size``, with ``dlatent_avg``."""
+    from content_aware_gan_compression_torch.models.stylegan2 import default_channels
+
+    ch = default_channels(2)
+    rng = np.random.default_rng(seed)
+    f32 = lambda *shape: rng.standard_normal(shape, dtype=np.float32)  # noqa: E731
+    vars = {}
+    for i in range(8):
+        vars[f"G_mapping/Dense{i}/weight"] = f32(512, 512)
+        vars[f"G_mapping/Dense{i}/bias"] = f32(512)
+    vars["G_synthesis/4x4/Const/const"] = f32(1, ch[4], 4, 4)
+
+    def conv(name, cin, cout, k):
+        vars.update({f"{name}/weight": f32(k, k, cin, cout), f"{name}/mod_weight": f32(512, cin),
+                     f"{name}/mod_bias": f32(cin), f"{name}/bias": 0.2 * f32(cout)})
+        if k == 3:
+            vars[f"{name}/noise_strength"] = np.float32(rng.uniform(0, 0.5))
+
+    conv("G_synthesis/4x4/Conv", ch[4], ch[4], 3)
+    conv("G_synthesis/4x4/ToRGB", ch[4], 3, 1)
+    for log in range(3, int(np.log2(size)) + 1):
+        r = 2 ** log
+        conv(f"G_synthesis/{r}x{r}/Conv0_up", ch[r // 2], ch[r], 3)
+        conv(f"G_synthesis/{r}x{r}/Conv1", ch[r], ch[r], 3)
+        conv(f"G_synthesis/{r}x{r}/ToRGB", ch[r], 3, 1)
+    for i in range(2 * int(np.log2(size)) - 3):
+        res = 2 ** ((i + 5) // 2)
+        vars[f"G_synthesis/noise{i}"] = f32(1, 1, res, res)
+    vars["dlatent_avg"] = 0.1 * f32(512)
+    return vars
+
+
+def convert_phase(dev, card, work):
+    """28. convert_weight on seeded TF variables at 256px, full widths: the
+    CLI's render of 16 images on the card (TF32 off, cuDNN deterministic)
+    against the same CLI on the CPU to 1e-3, then the generate CLI on the
+    converted .npz. Returns the render's launches."""
+    import io
+
+    from content_aware_gan_compression_torch import convert_weight
+    from content_aware_gan_compression_torch.ops.cuda import counts, reset_counts
+
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    os.makedirs(os.path.join(work, "tf"))
+    os.makedirs(os.path.join(work, "converted"))
+    vars_path = os.path.join(work, "tf", "ffhq256.npz")
+    np.savez(vars_path, **tf_generator_vars(SIZE, seed=21))
+    cwd = os.getcwd()
+    renders, seconds = {}, {}
+    os.chdir(os.path.join(work, "converted"))  # the CLI writes <name>.npz and .png here
+    try:
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                        allow_tf32=False):
+            for device in ("cuda", "cpu"):
+                reset_counts()
+                t0 = time.time()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    renders[device] = convert_weight.main([vars_path, "--device", device])
+                seconds[device] = round(time.time() - t0, 3)
+                if device == "cuda":
+                    launched = counts()
+    finally:
+        os.chdir(cwd)
+    err = (renders["cuda"] - renders["cpu"]).abs().max().item()
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", "content_aware_gan_compression_torch.generate",
+                           "--ckpt", os.path.join(work, "converted", "ffhq256.npz"),
+                           "--sample", "4",
+                           "--out_dir", os.path.join(work, "sample")],
+                          cwd=REPO, capture_output=True, text=True, timeout=600)
+    gen_s = time.time() - t0
+    png = os.path.join(work, "sample", "000000.png")
+    detail("convert_path", card=card, size=SIZE, images=list(renders["cuda"].shape),
+           seconds=seconds, max_abs_err_vs_cpu=err, tolerance=1e-3, tf32=False,
+           max_abs_value=renders["cpu"].abs().max().item(),
+           launches={k: launched[k] for k in ("blur4", "blur4_vector",
+                                              "fused_noise_bias_lrelu", "masked_scale")},
+           generate_cli_s=round(gen_s, 3), generate_rc=proc.returncode)
+    if (tuple(renders["cuda"].shape) != (16, 3, SIZE, SIZE) or not err <= 1e-3
+            or not torch.isfinite(renders["cuda"]).all()):
+        fail(f"convert_weight render: shape {tuple(renders['cuda'].shape)}, card vs CPU {err}")
+    if launched["blur4"] != 6 or launched["fused_noise_bias_lrelu"] != 13:
+        fail(f"convert_weight render launched {launched}; want blur4 6, epilogue 13")
+    if proc.returncode != 0 or not os.path.exists(png):
+        fail(f"generate CLI on the converted .npz: rc {proc.returncode} {proc.stderr[-3000:]}")
+    shutil.rmtree(work)
+    return launched
+
+
+def down_vs_plain(dev):
+    """29. ModulatedConv2d(downsample=True) on [16, 256, 256, 128] in float32
+    and bfloat16 (cuDNN deterministic, TF32 off): blur4 (pad (2, 2), one
+    launch each) against the same conv under plain_routes, float32 to 1e-5
+    of the plain output's largest value, bfloat16 bit for bit (blur4's
+    bounds). Returns the launches."""
+    from content_aware_gan_compression_torch.models.stylegan2 import ModulatedConv2d
+    from content_aware_gan_compression_torch.ops.cuda import counts, reset_counts
+
+    conv = ModulatedConv2d(128, 128, 3, 512, downsample=True,
+                           generator=torch.Generator().manual_seed(31)).to(dev)
+    gen = torch.Generator(dev).manual_seed(32)
+    x = torch.randn(BATCH, SIZE, SIZE, 128, generator=gen, device=dev)
+    style = torch.randn(BATCH, 512, generator=gen, device=dev)
+    results, launched = {}, {}
+    with torch.no_grad(), torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                                     deterministic=True, allow_tf32=False):
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            reset_counts()
+            got, _ = conv(x.to(dtype), style.to(dtype))
+            torch.cuda.synchronize()
+            launched[name] = counts()
+            with plain_routes():
+                want, _ = conv(x.to(dtype), style.to(dtype))
+            err = (got.float() - want.float()).abs().max().item()
+            scale = want.float().abs().max().item()
+            results[name] = {"max_abs_err": err, "max_abs_value": scale,
+                             "shape": list(got.shape)}
+            tol = 1e-5 * scale if dtype == torch.float32 else 0.0
+            if tuple(got.shape) != (BATCH, SIZE // 2, SIZE // 2, 128) or not err <= tol:
+                fail(f"down conv {name}: max_abs_err {err} > {tol}, shape {tuple(got.shape)}")
+            if launched[name]["blur4"] != 1 or launched[name]["blur4_vector"] != 1:
+                fail(f"down conv {name}: blur4 launched {launched[name]}, want 1 on float4 "
+                     "lanes")
+    detail("down_vs_plain", pad=list(conv.blur_pad), results=results,
+           launches={k: {kk: v[kk] for kk in ("blur4", "blur4_bf16", "blur4_vector")}
+                     for k, v in launched.items()},
+           tolerance="float32 1e-5 of the plain output's largest value; bfloat16 bit for bit")
+    if tuple(conv.blur_pad) != (2, 2):
+        fail(f"down conv blur pad {conv.blur_pad}, want (2, 2)")
+    return {"blur4": launched["float32"]["blur4"] + launched["bfloat16"]["blur4"]}
+
+
 def run_bench():
     """``python -m content_aware_gan_compression_torch.bench`` with its
     defaults in a subprocess: its one JSON line, checked for bench.py's keys
@@ -2501,6 +2918,13 @@ def main():
     bench_line, bench_s = run_bench()
     detail("bench", seconds=round(bench_s, 1), card=card, line=bench_line)
 
+    # -- 26-29. the data path, the profiler, the converter, the down conv ----------
+    work = os.path.join(REPO, "build", "chip_smoke")
+    data_counts = data_phases(dev, card, work, bench_line)
+    profiler_counts = profiler_phase(card)
+    convert_counts = convert_phase(dev, card, work)
+    down_counts = down_vs_plain(dev)
+
     def new_paths(name, vector=False):
         """The kernels line's launches of ``name`` on the sparsity and
         projector paths (blur4: forward + backward)."""
@@ -2513,6 +2937,14 @@ def main():
         if vector:
             out["vector_launches_sparsity_after_prune"] = \
                 sparsity_counts["after_prune"]["blur4_vector"]
+        # the train CLI and SparsityTrainer from image folders,
+        # the profiler (bfloat16), convert_weight's render and the down conv
+        out["launches_train_cli_folder"] = total_launches(data_counts["train_cli_folder"], name)
+        out["launches_sparsity_folder"] = total_launches(data_counts["sparsity_folder"], name)
+        out["launches_profiler_bf16"] = total_launches(profiler_counts, name)
+        out["launches_convert_render"] = total_launches(convert_counts, name)
+        if name == "blur4":
+            out["launches_down_conv"] = down_counts["blur4"]
         return out
 
     kernels = [

@@ -5,7 +5,8 @@ flag-compatible with the reference's Evaluation/calc_inception.py):
         --inception_ckpt pt_inception-2015-12-05-6726825d.pth
 
 Reads a uint8 cache (``.npy``, or a folder holding ``uint8_cache_<size>.npy``)
-or, with Pillow installed, an image folder (Lanczos resize to ``--size``), and
+or an image folder (Lanczos resize to ``--size``, which needs Pillow; PNGs
+already at ``--size`` are read without it), and
 writes the reference's pickle ``{'mean', 'cov', 'size', 'path'}`` to
 ``--output`` or ``inception_<name>.pkl``. Every batch has ``--batch`` images:
 the tail batch is tiled from its own rows (``np.resize``) and the surplus
@@ -21,14 +22,15 @@ import pickle
 
 
 def open_images(path: str, size: int, flip: bool):
-    """The cache at ``path`` if there is one, else its image folder."""
-    from .data import ImageFolderDataset, Uint8CacheDataset, cache_path_for
+    """The cache at ``path`` if there is one, else its image folder, resized
+    with Lanczos (the JAX CLI's ``open_dataset(..., resample="lanczos")``)."""
+    from .data import FFHQDataset, Uint8CacheDataset, cache_path_for
 
     if path.endswith(".npy"):
         return Uint8CacheDataset(path, random_flip=flip)
     if os.path.exists(cache_path_for(path, size)):
         return Uint8CacheDataset(cache_path_for(path, size), random_flip=flip)
-    return ImageFolderDataset(path, size, random_flip=flip)
+    return FFHQDataset(path, size, random_flip=flip, resample="lanczos")
 
 
 def main(argv=None):

@@ -219,12 +219,12 @@ def compute_real_stats_from_folder(folder: str, inception, *, size: int, batch_s
                                    n_sample=None, save_path: str | None = None,
                                    info_print=False) -> dict:
     """{'mean', 'cov', 'size', 'inception_regime'} Inception statistics of a
-    folder of images, decoded with Pillow and resized with Lanczos to
-    ``size`` (the reference's calc_inception flow without the LMDB store),
-    fed to Inception as [-1, 1] like the generated images."""
-    from ..data.dataset import ImageFolderDataset
+    folder of images, resized with Lanczos to ``size`` (the reference's
+    calc_inception flow without the LMDB store; ``FFHQDataset``), fed to
+    Inception as [-1, 1] like the generated images."""
+    from ..data.dataset import FFHQDataset
 
-    ds = ImageFolderDataset(folder, size, random_flip=False)
+    ds = FFHQDataset(folder, size, random_flip=False, resample="lanczos")
     n = min(n_sample, len(ds)) if n_sample else len(ds)
     device = next(inception.parameters()).device
     feats = []

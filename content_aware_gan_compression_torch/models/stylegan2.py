@@ -159,22 +159,34 @@ class EqualLinear(nn.Module):
 class ModulatedConv2d(nn.Module):
     """Per-sample modulated conv in scale-input/scale-output form; weight
     [1, out, in, k, k] as in the reference. ``upsample`` runs the stride-2
-    transposed conv and then the 4x4 blur (the blur4 kernel on the card)."""
+    transposed conv and then the 4x4 blur (the blur4 kernel on the card).
+    ``downsample`` blurs the modulated input (blur4, pads ((4-2)+(k-1)+1)//2
+    and ((4-2)+(k-1))//2) and then runs the stride-2 conv without padding
+    (reference model.py:214-222; the JAX package's ``down`` branch); no
+    network of either package calls it."""
 
     def __init__(self, in_ch, out_ch, kernel_size, style_dim, *, demodulate=True,
-                 upsample=False, blur_kernel=(1, 3, 3, 1), generator=None):
+                 upsample=False, downsample=False, blur_kernel=(1, 3, 3, 1), generator=None):
         super().__init__()
+        if upsample and downsample:
+            raise ValueError("a modulated conv upsamples or downsamples, not both")
         self.weight = nn.Parameter(
             torch.randn(1, out_ch, in_ch, kernel_size, kernel_size, generator=generator))
         self.modulation = EqualLinear(style_dim, in_ch, bias_init=1.0, generator=generator)
         self.scale = 1.0 / math.sqrt(in_ch * kernel_size * kernel_size)
         self.demodulate = demodulate
         self.upsample = upsample
+        self.downsample = downsample
+        factor = 2
         if upsample:
             # blur pads after the transposed conv (reference model.py:207-213)
-            factor = 2
             p = (len(blur_kernel) - factor) - (kernel_size - 1)
             self.blur_pad = ((p + 1) // 2 + factor - 1, p // 2 + 1)
+        if downsample:
+            # blur pads before the stride-2 conv (reference model.py:214-218)
+            p = (len(blur_kernel) - factor) + (kernel_size - 1)
+            self.blur_pad = ((p + 1) // 2, p // 2)
+        if upsample or downsample:
             # host taps: blur4 passes them to the kernel by value
             self.blur_taps = make_kernel(blur_kernel)
 
@@ -183,12 +195,16 @@ class ModulatedConv2d(nn.Module):
         w = self.weight[0]  # [out, in, k, k]
         k = w.shape[-1]
         s = self.modulation(style)  # [B, in]
-        xs = (x * s[:, None, None, :].to(x.dtype)).permute(0, 3, 1, 2)  # channels-last view
+        xs = x * s[:, None, None, :].to(x.dtype)
         ws = (w * self.scale).to(x.dtype)
         if self.upsample:
-            out = _to_nhwc(F.conv_transpose2d(xs, ws.transpose(0, 1), stride=2))
+            out = _to_nhwc(F.conv_transpose2d(xs.permute(0, 3, 1, 2), ws.transpose(0, 1),
+                                              stride=2))
+        elif self.downsample:
+            xs = blur(xs, self.blur_taps, pad=self.blur_pad)
+            out = _to_nhwc(F.conv2d(xs.permute(0, 3, 1, 2), ws, stride=2))
         else:
-            out = _to_nhwc(F.conv2d(xs, ws, padding=k // 2))
+            out = _to_nhwc(F.conv2d(xs.permute(0, 3, 1, 2), ws, padding=k // 2))
         if self.demodulate:
             wsq = torch.sum(torch.square(w.float()), dim=(2, 3))  # [out, in]
             sigma = (self.scale * self.scale) * (torch.square(s.float()) @ wsq.T) + 1e-8

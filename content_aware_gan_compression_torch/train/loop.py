@@ -18,7 +18,7 @@ import time
 
 import torch
 
-from ..data import infinite_loader, open_dataset
+from ..data import data_loader, open_dataset
 from ..evaluation.fid import OverlappedFIDEval, get_model_fid_score
 from ..models.stylegan2 import Discriminator, DiscriminatorConfig, Generator, GeneratorConfig
 from ..utils.checkpoint import (
@@ -147,7 +147,7 @@ class Trainer:
         """One reference iteration (train.py:371-398): D GAN step, R1 every
         ``d_reg_freq``, G GAN + KD step against the updated D, path length
         every ``g_reg_freq``, EMA. ``real_img`` is a uint8 [B, H, W, 3] host
-        batch or a float NHWC tensor; ``draws`` defaults to ``draw``'s.
+        batch or a float one, NHWC or NCHW (``prepare_real``); ``draws`` defaults to ``draw``'s.
         ``phase_hook(name)``, if given, runs after each phase ('d', 'd_reg',
         'g', 'g_reg', 'ema'). The G phase is ``g_phase``. Returns (metrics
         of 0-dim device tensors, the new mean path length)."""
@@ -208,6 +208,14 @@ class Trainer:
                                            generator=gen), iter_idx)
         return None
 
+    def open_loader(self, seed: int):
+        """``run``'s batches: uint8 [B, H, W, 3] from ``cfg.data_folder``
+        (a ``.npy`` cache, a folder's cache, or the folder's images decoded
+        per read; ``open_dataset``). A trainer that reads data otherwise
+        overrides this."""
+        dataset = open_dataset(self.cfg.data_folder, self.cfg.generated_img_size)
+        return data_loader(dataset, self.cfg.batch_size, seed=seed, uint8_hwc=True)
+
     def log_iteration(self, logger, iter_idx: int, train_time: float, metrics: dict):
         """``run``'s line and record of one iteration."""
         logger.log_iteration(iter_idx, train_time, metrics)
@@ -233,13 +241,18 @@ class Trainer:
         after each step and is drained before ``run`` returns; its score is
         logged with the iteration it started at. ``phase_hook`` goes to
         ``step`` and is also called with 'sample' and the event's name after
-        those."""
-        cfg = self.cfg
+        those. Batches come from ``open_loader``, closed when ``run`` ends."""
         logger = logger or ExperimentLogger(self.exp_root)
+        loader = self.open_loader(data_seed if data_seed is not None else self.cfg.seed)
+        try:
+            return self._run(loader, logger, max_iters, phase_hook)
+        finally:
+            loader.close()
+
+    def _run(self, loader, logger, max_iters, phase_hook):
+        """``run``'s loop over ``loader``'s batches."""
+        cfg = self.cfg
         hook = phase_hook or (lambda name: None)
-        dataset = open_dataset(cfg.data_folder, cfg.generated_img_size)
-        loader = infinite_loader(dataset, cfg.batch_size,
-                                 seed=data_seed if data_seed is not None else cfg.seed)
         sample_z = torch.randn(cfg.val_sample_num, cfg.latent, generator=self.gen,
                                device=self.device)
         mean_path_length = torch.zeros((), device=self.device)

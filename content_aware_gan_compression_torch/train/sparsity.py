@@ -27,6 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..data import FFHQDataset, data_loader
 from ..models.stylegan2 import default_net_shape
 from ..pruning import (
     generate_prune_mask_list, get_network_score_list, get_uniform_remove_list,
@@ -159,6 +160,17 @@ class SparsityTrainer(Trainer):
     def g_phase(self, draws) -> dict:
         return sparse_g_step(self.g, self.g_opt, self.d, draws, self.cfg, self.opts,
                              self.teacher, self.lpips, self.dtype)
+
+    def open_loader(self, seed: int):
+        """A ``.npy`` cache as the ``Trainer`` reads it; any other path as
+        the JAX package's ``run_sparsity`` reads it (train/sparsity.py:
+        235-241): its images decoded per read (``FFHQDataset``, even where
+        the folder holds a cache) into float NCHW batches through the native
+        transform."""
+        if self.cfg.data_folder.endswith(".npy"):
+            return super().open_loader(seed)
+        dataset = FFHQDataset(self.cfg.data_folder, self.cfg.generated_img_size)
+        return data_loader(dataset, self.cfg.batch_size, seed=seed)
 
     def prune_in_training(self, z=None):
         """Score ``g_ema`` on ``z`` (``PRUNE_SAMPLES`` latents drawn from the

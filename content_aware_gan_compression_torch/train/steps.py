@@ -120,11 +120,16 @@ def ema_accumulate(g_ema, g, decay: float = EMA_ACCUM) -> None:
 def prepare_real(batch, device) -> torch.Tensor:
     """A uint8 [B, H, W, 3] host batch -> float32 NHWC in [-1, 1] on
     ``device`` (the 4x smaller copy crosses the bus; the JAX package's
-    ``_prep``). A float tensor passes through."""
+    ``_prep``). A float batch passes through in NHWC; a 3-channel NCHW one
+    (the float loader's) is made NHWC on ``device``, as the JAX steps'
+    ``_as_nhwc_image`` does."""
     t = torch.as_tensor(batch)
-    if t.dtype != torch.uint8:
-        return t.to(device)
-    return t.to(device, non_blocking=True).float() / 127.5 - 1.0
+    if t.dtype == torch.uint8:
+        return t.to(device, non_blocking=True).float() / 127.5 - 1.0
+    t = t.to(device)
+    if t.shape[1] == 3 and t.shape[-1] != 3:
+        t = t.permute(0, 2, 3, 1).contiguous()
+    return t
 
 
 # ---------------------------------------------------------------------------

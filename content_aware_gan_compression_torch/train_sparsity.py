@@ -5,8 +5,9 @@ Miscellaneous/train_sparsity.py and train_sparsity_hyperparams.py):
     python -m content_aware_gan_compression_torch.train_sparsity --path data.npy \\
         --ckpt full.npz --teacher_ckpt full.npz
 
-Training images come from a uint8 cache (``--path``: a ``.npy`` or a folder
-holding ``uint8_cache_<size>.npy``), as for ``train``. Boolean flags parse
+Training images come from a uint8 cache (``--path`` a ``.npy``), as for
+``train``, or from an image folder decoded per read into float batches, as
+the JAX package's ``run_sparsity`` reads it. Boolean flags parse
 with ``str2bool``. With a teacher and ``--kd_percept_lambda > 0`` the
 percept term needs VGG16 weights (``--lpips_vgg_ckpt``, torchvision's
 ``features.N.*``; with ``--kd_percept_mode LPIPS`` also the heads,

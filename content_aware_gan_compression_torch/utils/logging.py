@@ -22,12 +22,42 @@ def _png_chunk(tag: bytes, data: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
 
-def write_png(path: str, arr: np.ndarray) -> None:
-    """Write a uint8 [H, W, C] array (C = 1, 3 or 4) as an 8-bit PNG."""
+def _filter_rows(rows: np.ndarray, ftype: int, bpp: int) -> np.ndarray:
+    """PNG filter ``ftype`` (0 none, 1 sub, 2 up, 3 average, 4 Paeth) of
+    uint8 rows [H, stride] whose pixels are ``bpp`` bytes."""
+    x = rows.astype(np.int32)
+    a = np.zeros_like(x)  # left
+    a[:, bpp:] = x[:, :-bpp]
+    b = np.zeros_like(x)  # up
+    b[1:] = x[:-1]
+    c = np.zeros_like(x)  # up-left
+    c[1:, bpp:] = x[:-1, :-bpp]
+    if ftype == 0:
+        pred = np.zeros_like(x)
+    elif ftype == 1:
+        pred = a
+    elif ftype == 2:
+        pred = b
+    elif ftype == 3:
+        pred = (a + b) >> 1
+    elif ftype == 4:
+        p = a + b - c
+        pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+        pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    else:
+        raise ValueError(f"PNG filter type {ftype} is not one of 0-4")
+    return ((x - pred) & 0xFF).astype(np.uint8)
+
+
+def write_png(path: str, arr: np.ndarray, filter_type: int = 0) -> None:
+    """Write a uint8 [H, W, C] array (C = 1, 3 or 4) as an 8-bit PNG, every
+    row with the PNG filter ``filter_type`` (0 none, the default; 1 sub, 2
+    up, 3 average, 4 Paeth)."""
     h, w, c = arr.shape
     if arr.dtype != np.uint8 or c not in _PNG_COLOR_TYPE:
         raise ValueError(f"write_png takes uint8 [H,W,1|3|4], got {arr.dtype} {arr.shape}")
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), arr.reshape(h, w * c)], axis=1)
+    filtered = _filter_rows(arr.reshape(h, w * c), filter_type, c)
+    rows = np.concatenate([np.full((h, 1), filter_type, np.uint8), filtered], axis=1)
     header = struct.pack(">IIBBBBB", w, h, 8, _PNG_COLOR_TYPE[c], 0, 0, 0)
     with open(path, "wb") as f:
         f.write(b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", header)

@@ -170,13 +170,14 @@ def test_fresh_trainer_without_checkpoints(tmp_path):
 def test_loader_gives_the_jax_loaders_batches(tmp_path):
     cache = tmp_path / "uint8_cache_16.npy"
     np.save(cache, (np.random.RandomState(0).rand(10, 16, 16, 3) * 255).astype(np.uint8))
-    mine = infinite_loader(open_dataset(str(tmp_path), 16), 4, seed=5)
+    mine = infinite_loader(open_dataset(str(tmp_path), 16), 4, seed=5, uint8_hwc=True)
     theirs = jax_infinite_loader(jax_open_dataset(str(tmp_path), 16), 4, seed=5,
                                  uint8_hwc=True)
     try:
         for _ in range(6):  # three epochs of two full batches
             np.testing.assert_array_equal(next(mine), next(theirs))
     finally:
+        mine.close()
         theirs.close()
     with pytest.raises(FileNotFoundError, match="uint8 cache"):
         open_dataset(str(tmp_path / "missing"), 16)
