@@ -164,6 +164,22 @@ path in bfloat16 at 256px, iterations 0-4 with every launch a bfloat16 one
 and as many as ``train_phase_launches`` wants, no bfloat16 blur in the
 general ``upfirdn2d``; then train_rate's window with Adam's second moment in
 float32 and in bfloat16).
+Data parallel (``parallel``), after phase 8: ``dp_world1_nccl`` (8b: the
+bfloat16 full_kd Trainer of 7c, iterations 0-4 in one process and then with
+an NCCL process group of world size 1, both under cuDNN's deterministic
+algorithms: launches per phase as ``train_phase_launches`` wants, all
+bfloat16, and the two trajectories bit for bit; then train_rate_bf16's
+window under its flags with the collectives off, on, on, off, and every
+all-reduce's CUDA-event time and bytes per iteration),
+``dp_two_ranks_one_card`` (8c: two processes on cuda:0 joined over gloo,
+named, 64px at a global batch of 8, lr 0, iterations 0-4: the metrics
+against one process at 1e-4, iteration 0's all-reduced gradients against
+float64 (on the card, plain routes) within twice the card's own fp32
+distance from it (one process at batch 8, each half at batch 4) + 1e-4,
+the ranks' gradients bit-equal, each rank's launches per phase) and
+``dp_nccl_cards`` (8d: with 2 cards, the train CLI under ``torchrun
+--nproc_per_node=2`` at 256px, bfloat16 full_kd, global batch 16, it/s and
+images/s; with one card it prints ``dp_nccl_cards: not run, 1 card``).
 The last lines are a {"kernels": [...]} JSON line, the card's name and power
 limit, and {"ok": true, "device": {...}}. Each phase's JSON line also goes to
 chiprun_out/chip_smoke_details.jsonl. Needs a CUDA card; without one it
@@ -361,6 +377,14 @@ def to_device(obj, dev):
     if isinstance(obj, (list, tuple)):
         return [to_device(v, dev) for v in obj]
     return obj
+
+
+def to_float64(draws):
+    """A Trainer's draws (phase -> name -> tensor or list of tensors) with
+    every floating tensor in float64."""
+    return {ph: {k: ([t.double() for t in v] if isinstance(v, list)
+                     else v.double() if v.is_floating_point() else v)
+                 for k, v in d.items()} for ph, d in draws.items()}
 
 
 def student_epilogue_shapes(batch, net_shape=STUDENT_SHAPE):
@@ -1702,9 +1726,7 @@ def train_vs_float64(work, dev, objectives=("kd_l1", "full_kd"), compute_dtype="
             if module is not None:
                 module.double()
         draws = runs["cpu"].draw(0)
-        f64_draws = {ph: {k: ([t.double() for t in v] if isinstance(v, list)
-                              else v.double() if v.is_floating_point() else v)
-                          for k, v in d.items()} for ph, d in draws.items()}
+        f64_draws = to_float64(draws)
         agree = None
         if objective == "full_kd":
             from content_aware_gan_compression_torch.models import make_parse_fn
@@ -2042,6 +2064,422 @@ def bf16_train_phases(student, teacher, parser, reals, want_phase, dev):
     torch.cuda.reset_peak_memory_stats()
     torch.backends.cudnn.allow_tf32 = False
     return launches, rates
+
+
+# -- data parallel (parallel/mesh.py) -------------------------------------------
+
+DP_WINDOW = range(16, 32)  # train_rate_bf16's window
+DP_SIZE, DP_BATCH = 64, 8  # dp_two_ranks_one_card
+DP_CADENCE = dict(d_reg_freq=4, g_reg_freq=2)  # R1 at 0, path length at 0, 2 and 4
+DP_ITERS = 5
+DP_CLI_ITERS = 5
+
+
+def weights_of(trainer):
+    """g, d and g_ema's state on the CPU."""
+    return {net: {k: v.detach().cpu().clone()
+                  for k, v in getattr(trainer, net).state_dict().items()}
+            for net in ("g", "d", "g_ema")}
+
+
+def drive_counted(trainer, real_rows, want_phase, bf16, iters=DP_ITERS):
+    """Iterations 0..iters-1 with each phase's launches checked against
+    ``want_phase`` (None on the CPU, which launches none; with ``bf16``
+    every one a bfloat16 launch); each iteration's metrics averaged over
+    ranks. ``real_rows(it)`` is the rank's real batch. Returns (metrics,
+    summed launches, mean path length)."""
+    from content_aware_gan_compression_torch import parallel
+    from content_aware_gan_compression_torch.ops.cuda import reset_counts
+
+    mpl = torch.zeros((), device=trainer.device)
+    phases, metrics = [], []
+    reset_counts()
+    for it in range(iters):
+        m, mpl = trainer.step(it, real_rows(it), mpl, phase_hook=phase_counter(phases))
+        keys = sorted(m)
+        packed = parallel.mean_over_ranks(torch.stack([m[k].float() for k in keys]))
+        metrics.append(dict(zip(keys, packed.tolist())))
+    if trainer.device.type == "cuda":
+        torch.cuda.synchronize()
+    launches = {}
+    for name, c in phases:
+        if want_phase is None:
+            continue
+        want = dict(want_phase[name])
+        got = {k: c[k] for k in want}
+        if got != want or (bf16 and {k: c[f"{k}_bf16"] for k in want} != want):
+            fail(f"data-parallel phase {name} launched {c}, want {want}"
+                 + (" all bf16" if bf16 else ""))
+        for k, v in c.items():
+            launches[k] = launches.get(k, 0) + v
+    for need in ("d_reg", "g", "g_reg"):
+        if need not in [n for n, _ in phases]:
+            fail(f"data-parallel phase {need} did not run")
+    if not all(np.isfinite(v) for m in metrics for v in m.values()):
+        fail(f"a data-parallel loss is not finite: {metrics}")
+    return metrics, launches, float(mpl)
+
+
+@contextlib.contextmanager
+def collective_times():
+    """CUDA-event times and bytes of every ``torch.distributed.all_reduce``
+    (the gradient buckets, the stddev gather and the path mean, forward and
+    backward, the logged metrics) and of each ``all_reduce_grads`` call
+    (flatten, all-reduce, divide, write back) while the context is open."""
+    import torch.distributed as dist
+
+    from content_aware_gan_compression_torch import parallel
+
+    rec = {"all_reduce": [], "all_reduce_grads": []}
+
+    def timed(name, fn):
+        def wrapper(*args, **kw):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            nbytes = args[0].numel() * args[0].element_size() if name == "all_reduce" else 0
+            rec[name].append((start, end, nbytes))
+            return out
+        return wrapper
+
+    saved = dist.all_reduce, parallel.all_reduce_grads
+    dist.all_reduce = timed("all_reduce", saved[0])
+    parallel.all_reduce_grads = timed("all_reduce_grads", saved[1])
+    try:
+        yield rec
+    finally:
+        dist.all_reduce, parallel.all_reduce_grads = saved
+
+
+def dp_rate(trainer, reals, mpl, window=DP_WINDOW):
+    """Iterations/s, ms per iteration and peak memory over ``window`` after
+    two warm-up iterations (train_window's timing, without its profile)."""
+    for it in (1, 2):
+        trainer.step(it, reals[it % 4], mpl)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for it in window:
+        _, mpl = trainer.step(it, reals[it % 4], mpl)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return {"iterations_per_s": len(window) / seconds,
+            "ms_per_iteration": seconds * 1e3 / len(window),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}, mpl
+
+
+def dp_world1_phase(student, teacher, parser, reals, want_phase, dev, work):
+    """``dp_world1_nccl``: the bf16 full_kd Trainer at 256px, batch 16,
+    iterations 0-4, in one process, then again with an NCCL process group
+    of world size 1 (every collective of the data-parallel path runs), both
+    under cuDNN's deterministic algorithms: launches per phase, and the
+    trajectory bit for bit. Then train_rate_bf16's window with the group's
+    collectives on and off in turns, and the collectives' CUDA-event ms and
+    bytes per iteration. Returns (launches, details)."""
+    from content_aware_gan_compression_torch import parallel
+    from content_aware_gan_compression_torch.parallel import mesh
+    from content_aware_gan_compression_torch.train import Trainer
+
+    def make():
+        return Trainer(train_config(SIZE, BATCH, student, teacher, "full_kd",
+                                    compute_dtype="bfloat16"),
+                       device=dev, lpips_params=seeded_lpips(), parse_params=parser)
+
+    t0 = time.time()
+    runs = {}
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                     allow_tf32=True):
+        tr = make()
+        runs["one_process"] = (*drive_counted(tr, lambda it: reals[it % 4], want_phase, True),
+                               weights_of(tr))
+        del tr
+        torch.cuda.empty_cache()
+        got = parallel.initialize(dev, backend="nccl",
+                                  init_method=f"file://{os.path.join(work, 'nccl_store')}",
+                                  world_size=1, rank=0)
+        if got != torch.device("cuda", 0) or torch.distributed.get_backend() != "nccl":
+            fail(f"dp_world1_nccl: initialize gave {got}, {torch.distributed.get_backend()}")
+        tr = make()
+        runs["nccl"] = (*drive_counted(tr, lambda it: reals[it % 4], want_phase, True),
+                        weights_of(tr))
+    (m1, _, p1, w1), (m2, launches, p2, w2) = runs["one_process"], runs["nccl"]
+    differ = [f"{net}.{k}" for net in w1 for k in w1[net]
+              if not torch.equal(w1[net][k], w2[net][k])]
+    if m1 != m2 or p1 != p2 or differ:
+        fail(f"dp_world1_nccl: the NCCL run is not bit for bit the one-process run: metrics "
+             f"{m1} vs {m2}, weights differ in {differ[:6]}")
+    # the window with the collectives off (as without a group) and on, in
+    # turns off, on, on, off, under train_rate_bf16's flags (cuDNN's
+    # default algorithms, TF32 on for the float32 convolutions)
+    active = mesh.active
+    turns = []
+    mpl = torch.zeros((), device=dev)
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=False,
+                                     allow_tf32=True):
+        try:
+            for turn in ("off", "on", "on", "off"):
+                mesh.active = (lambda: False) if turn == "off" else active
+                r, mpl = dp_rate(tr, reals, mpl)
+                turns.append({"collectives": turn, **r})
+        finally:
+            mesh.active = active
+        with collective_times() as rec:
+            r, mpl = dp_rate(tr, reals, mpl)
+        torch.cuda.synchronize()
+    n = len(DP_WINDOW) + 2
+    per_iter = {name: {"ms_per_iteration": sum(s.elapsed_time(e) for s, e, _ in rec[name]) / n,
+                       "calls_per_iteration": len(rec[name]) / n}
+                for name in rec}
+    per_iter["all_reduce"]["mbytes_per_iteration"] = sum(
+        b for _, _, b in rec["all_reduce"]) / n / 1e6
+    del tr
+    torch.cuda.empty_cache()
+    parallel.finalize()
+    mean = {turn: float(np.mean([x["iterations_per_s"] for x in turns
+                                 if x["collectives"] == turn])) for turn in ("off", "on")}
+    out = {"seconds": round(time.time() - t0, 1), "bit_for_bit": True,
+           "metrics_iteration4": m2[-1], "turns": turns, "mean_iterations_per_s": mean,
+           "instrumented_window": r, "collectives": per_iter}
+    return launches, out
+
+
+def dp_reals():
+    """dp_two_ranks_one_card's seeded uint8 real batches, iterations 0-4."""
+    return np.random.RandomState(6).randint(0, 256, (DP_ITERS, DP_BATCH, DP_SIZE, DP_SIZE, 3),
+                                            dtype=np.uint8)
+
+
+def dp_config(student, teacher, batch):
+    return train_config(DP_SIZE, batch, student, teacher, "kd_l1", init_lr=0.0, **DP_CADENCE)
+
+
+def dp_rank_run(dev, student, teacher):
+    """The 64px KD-L1 Trainer at a global batch of DP_BATCH and lr 0,
+    iterations 0-4 (DP_CADENCE), each rank on its rows of ``dp_reals``,
+    TF32 off under cuDNN's deterministic algorithms: (metrics averaged over
+    ranks, launches, mean path length, iteration 0's gradient of each
+    phase's network after its all-reduce, by parameter, and iteration 0's
+    draws as the Trainer drew them, both on the CPU)."""
+    from content_aware_gan_compression_torch import parallel
+    from content_aware_gan_compression_torch.train import Trainer
+
+    reals = dp_reals()
+    grads, drawn = {}, {}
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                     allow_tf32=False):
+        tr = Trainer(dp_config(student, teacher, DP_BATCH), device=dev)
+        plain_step, plain_draw = tr.step, tr.draw
+
+        def draw(it):
+            out = plain_draw(it)
+            if it == 0:
+                drawn.update(to_device(out, "cpu"))
+            return out
+
+        def step(it, real, mpl, phase_hook=None):
+            def both(name):
+                if it == 0 and name in ("d", "d_reg", "g", "g_reg"):
+                    net = tr.d if name.startswith("d") else tr.g
+                    grads[name] = {n: p.grad.cpu() for n, p in net.named_parameters()
+                                   if p.grad is not None}
+                phase_hook(name)
+            return plain_step(it, real, mpl, phase_hook=both)
+
+        tr.draw, tr.step = draw, step
+        out = drive_counted(tr, lambda it: parallel.shard_rows(torch.from_numpy(reals[it])),
+                            train_phase_launches(int(np.log2(DP_SIZE))), False)
+    return (*out, grads, drawn)
+
+
+def dp_iteration0_grads(dev, student, teacher, real, draws, dtype=torch.float32):
+    """Iteration 0 of ``dp_rank_run``'s Trainer at ``real``'s batch (uint8)
+    in one process on ``dev`` in ``dtype``, on ``draws``, TF32 off under
+    cuDNN's deterministic algorithms: each phase's gradient by parameter, on
+    the CPU. In float64 every network and input is float64 and the three
+    wrappers take their plain versions (``plain_routes``); the port's
+    float32 islands (the demodulation's sigma, the stddev, the path
+    lengths, D's logits into the losses) stay float32, as in JAX."""
+    from content_aware_gan_compression_torch.train import Trainer
+
+    tr = Trainer(dp_config(student, teacher, real.shape[0]), device=dev)
+    routes = contextlib.nullcontext()
+    if dtype == torch.float64:
+        for module in (tr.g, tr.d, tr.teacher):
+            module.double()
+        draws = to_float64(draws)
+        routes = plain_routes()
+    grads = {}
+
+    def hook(name):
+        if name in ("d", "d_reg", "g", "g_reg"):
+            net = tr.d if name.startswith("d") else tr.g
+            grads[name] = {n: p.grad.cpu() for n, p in net.named_parameters()
+                           if p.grad is not None}
+    with routes, torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                             allow_tf32=False):
+        tr.step(0, torch.from_numpy(real).to(dev, dtype) / 127.5 - 1.0,
+                torch.zeros((), device=dev, dtype=dtype), draws=to_device(draws, dev),
+                phase_hook=hook)
+    return grads
+
+
+def half_draws(draws, h):
+    """Half ``h`` (0 or 1) of the rows of every tensor of a Trainer's draws;
+    the mixing point is shared."""
+    def rows(t):
+        n = t.shape[0] // 2
+        return t[h * n:(h + 1) * n]
+    return {ph: {k: v if k == "inject_index" else
+                 [rows(t) for t in v] if isinstance(v, list) else rows(v)
+                 for k, v in d.items()} for ph, d in draws.items()}
+
+
+def grad_distance(grads, ref):
+    """Per phase: (the largest error of a tensor over that tensor's largest
+    value in ``ref``, phase 7's measure; the tensor; the largest error of
+    any tensor over the largest value of any, the whole gradient's)."""
+    out = {}
+    for ph, want in ref.items():
+        err, name = max((max_rel_err(grads[ph][n].double(), g.double()), n)
+                        for n, g in want.items())
+        whole = (max(float((grads[ph][n].double() - g.double()).abs().max())
+                     for n, g in want.items())
+                 / max(float(g.abs().max()) for g in want.values()))
+        out[ph] = (err, name, whole)
+    return out
+
+
+def dp_rank_worker(rank, world, store, out_dir, student, teacher):
+    """One rank of ``dp_two_ranks_one_card``: gloo on cuda:0, named."""
+    from content_aware_gan_compression_torch import parallel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = parallel.initialize("cuda:0", backend="gloo", init_method=f"file://{store}",
+                              world_size=world, rank=rank)
+    try:
+        torch.save(dp_rank_run(dev, student, teacher), os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        parallel.finalize()
+
+
+def dp_two_ranks_phase(dev, work):
+    """``dp_two_ranks_one_card``: two processes on cuda:0 over gloo, 64px at
+    a global batch of 8, lr 0, iterations 0-4, against one process on the
+    card: the metrics at 1e-4 relative and 1e-5 absolute
+    (test_torch_data_parallel.py's bound), the ranks' gradients and metrics
+    bit-equal, each rank's launches per phase as train_phase_launches
+    wants. Iteration 0's all-reduced gradient of each phase is held against
+    the same iteration in float64 (one process on the card, the plain
+    routes, the same draws), phase 7's way: two ranks may be no further from it than twice
+    the card's own fp32 distance, plus 1e-4. The card's own is the largest
+    of one process at batch 8 and of each half of that batch run alone as
+    a batch of 4 (a rank's shapes; the same rows and draws), each against
+    its own run in float64. Both of ``grad_distance``'s measures are held:
+    a tensor's (phase 7's), which the cancellation in a small tensor's
+    gradient makes noisy, and the whole gradient's.
+
+    At lr 0 the weights stay put, so the gradients are what the trajectory
+    is made of: with the training lr, Adam's first steps (about lr *
+    sign(g)) turn the last bits of a gradient near 0 into whole steps, and
+    5 iterations at 64px end 3% apart on the card between any two batch
+    splits."""
+    import torch.multiprocessing as mp
+
+    t0 = time.time()
+    student, teacher = write_train_checkpoints(work, DP_SIZE)
+    one = dp_rank_run(dev, student, teacher)
+    real = dp_reals()[0]
+    rows = DP_BATCH // 2
+    halves = [(real[h * rows:(h + 1) * rows], half_draws(one[4], h)) for h in range(2)]
+    store, out_dir = os.path.join(work, "gloo_store"), os.path.join(work, "dp_ranks")
+    os.makedirs(out_dir, exist_ok=True)
+    try:
+        mp.spawn(dp_rank_worker, args=(2, store, out_dir, student, teacher), nprocs=2,
+                 join=True)
+    except Exception as e:  # a rank's failure, with its traceback
+        fail(f"dp_two_ranks_one_card: a rank failed: {e}")
+    half_grads = [dp_iteration0_grads(dev, student, teacher, rows, draws)
+                  for rows, draws in halves]
+    f64, *f64_halves = [dp_iteration0_grads(dev, student, teacher, rows, draws, torch.float64)
+                        for rows, draws in [(real, one[4]), *halves]]
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+             for r in range(2)]
+    dist = {"two_ranks_vs_float64": grad_distance(ranks[0][3], f64),
+            "one_process_vs_float64": grad_distance(one[3], f64),
+            **{f"half{h}_vs_float64": grad_distance(half_grads[h], f64_halves[h])
+               for h in range(2)},
+            "two_ranks_vs_one_process": grad_distance(ranks[0][3], one[3])}
+    own = [k for k in dist if k.startswith(("one", "half"))]
+    bound = {ph: [2 * max(dist[k][ph][i] for k in own) + 1e-4 for i in (0, 2)] for ph in f64}
+    metric_err = max(abs(ranks[0][0][it][k] - v) - 1e-4 * abs(v)
+                     for it, want in enumerate(one[0]) for k, v in want.items())
+    out = {"seconds": round(time.time() - t0, 1), "size": DP_SIZE, "global_batch": DP_BATCH,
+           "ranks": 2, "backend": "gloo", "device": "cuda:0", "lr": 0.0,
+           "launches_per_rank": ranks[0][1], "launches_one_process": one[1],
+           "metric_excess_over_1e-4_relative": metric_err,
+           "grad_distance": {k: {ph: {"tensor_err": e, "tensor": n, "whole_err": w}
+                                 for ph, (e, n, w) in v.items()} for k, v in dist.items()},
+           "grad_bound": {ph: {"tensor_err": b[0], "whole_err": b[1]}
+                          for ph, b in bound.items()},
+           "metrics_iteration4": ranks[0][0][-1]}
+    detail("dp_two_ranks_one_card", card=card_line(), **out,
+           tolerance="metrics 1e-4 relative + 1e-5 absolute; two ranks' gradients vs float64, "
+                     "in both measures, <= 2 x the card's own distance (the largest of one "
+                     "process at batch 8 and of each half of its batch run alone) + 1e-4; "
+                     "the ranks bit-equal",
+           measure="per phase: tensor_err, the largest error of a tensor over its largest "
+                   "value in the reference (phase 7's), and that tensor; whole_err, the "
+                   "largest error over the largest value of the phase's whole gradient")
+    for it, want in enumerate(one[0]):
+        for k, v in want.items():
+            got = ranks[0][0][it][k]
+            if abs(got - v) > 1e-5 + 1e-4 * abs(v):
+                fail(f"dp_two_ranks_one_card: iteration {it} {k}: {got} vs one process {v}")
+    for ph, (err, name, whole) in dist["two_ranks_vs_float64"].items():
+        if err > bound[ph][0] or whole > bound[ph][1]:
+            fail(f"dp_two_ranks_one_card: phase {ph}'s gradient is {err} ({name}) and {whole} "
+                 f"(whole) from float64's, over {bound[ph]}")
+        if any(not torch.equal(g, ranks[1][3][ph][n]) for n, g in ranks[0][3][ph].items()):
+            fail(f"dp_two_ranks_one_card: the ranks' {ph} gradients differ")
+    if ranks[0][0] != ranks[1][0]:
+        fail("dp_two_ranks_one_card: the ranks logged different metrics")
+    return out
+
+
+def dp_cards_phase(work, cache, student, teacher, aux_files):
+    """``dp_nccl_cards``: where the machine has 2 cards or more, the train
+    CLI under ``torchrun --nproc_per_node=2`` at 256px, bf16 full_kd, global
+    batch 16, for DP_CLI_ITERS iterations: it/s and images/s from rank 0's
+    records (iterations 1 on). None on one card."""
+    nproc, iters = 2, DP_CLI_ITERS
+    if torch.cuda.device_count() < nproc:
+        print("dp_nccl_cards: not run, 1 card", flush=True)
+        return None
+    vgg_file, lins_file, parsing_file = aux_files
+    root = os.path.join(work, f"cli_dp{nproc}")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={nproc}", "-m", "content_aware_gan_compression_torch.train",
+           "--path", cache, "--size", str(SIZE), "--ckpt", student, "--teacher_ckpt", teacher,
+           "--batch_size", str(BATCH), "--iter", str(iters), "--dtype", "bfloat16",
+           "--n_sample", "4", "--lpips_vgg_ckpt", vgg_file, "--lpips_lins_ckpt", lins_file,
+           "--parsing_ckpt", parsing_file, "--exp_root", root]
+    t0 = time.time()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        fail(f"dp_nccl_cards: torchrun rc {proc.returncode}: {proc.stderr[-3000:]}")
+    (exp,) = [os.path.join(root, d) for d in os.listdir(root) if d.startswith("Exp_")]
+    with open(os.path.join(exp, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f if '"d"' in line]
+    if [r["iter"] for r in recs] != list(range(iters)) or not all(
+            np.isfinite(v) for r in recs for v in r.values()):
+        fail(f"dp_nccl_cards: records {recs}")
+    if f"{nproc} process(es)" not in proc.stdout:
+        fail(f"dp_nccl_cards: the CLI did not run {nproc} processes: {proc.stdout[-2000:]}")
+    rate = (len(recs) - 1) / sum(r["train_time"] for r in recs[1:])
+    return {"seconds": round(time.time() - t0, 1), "cards": nproc, "global_batch": BATCH,
+            "iterations": iters, "iterations_per_s": rate, "images_per_s": rate * BATCH,
+            "note": "train_time of iterations 1 on, from rank 0's records"}
 
 
 # -- the data path, the profiler, the converter and the down conv ---------------
@@ -2786,6 +3224,23 @@ def main():
     if head[:8] != b"\x89PNG\r\n\x1a\n" or struct.unpack(">II", head[16:24]) != (
             2 + 2 * (SIZE + 2),) * 2:
         fail("train CLI sample grid is not the expected PNG")
+
+    # -- 8b. data parallel: world size 1 over NCCL, 2 ranks on one card ---------
+    dp_launches, dp_world1 = dp_world1_phase(student, teacher, parser, reals, want_phase, dev,
+                                             work)
+    detail("dp_world1_nccl", size=SIZE, batch=BATCH, path_batch=PATH_BATCH,
+           compute_dtype="bfloat16", objective="full_kd", backend="nccl", world_size=1,
+           launches=dp_launches, card=card, **dp_world1,
+           window="iterations 16-31 as train_rate_bf16's, under its cuDNN flags; turns in "
+                  "order; collectives off = the helpers' one-process path in the same "
+                  "process, on = the NCCL group's; the instrumented window (CUDA events on "
+                  "every all-reduce) comes last",
+           note="iterations 0-4 under cuDNN's deterministic algorithms, one process and "
+                "then the NCCL group, bit for bit")
+    dp_two = dp_two_ranks_phase(dev, work)
+    dp_cards = dp_cards_phase(work, cache, student, teacher, (vgg_file, lins_file, parsing_file))
+    if dp_cards is not None:
+        detail("dp_nccl_cards", card=card, **dp_cards)
     shutil.rmtree(work)
 
     # -- 9. times on the card ---------------------------------------------------
@@ -3007,6 +3462,14 @@ def main():
             "max_rel_err_backward": bf16_bw["epilogue"],
             "max_rel_err_backward_vs_autograd_of_plain": bf16_bw["epilogue_vs_autograd_of_plain"]},
         "masked_scale": {"launches": bf16_launches["masked_scale_bf16"]}}
+    # the data-parallel paths: each rank's launches on 2 gloo ranks (64px,
+    # float32) and the NCCL world-size-1 run's (256px, bfloat16)
+    for entry in kernels:
+        entry["launches_dp_two_ranks_per_rank"] = total_launches(
+            dp_two["launches_per_rank"], entry["name"])
+    for name in bf16_entry:
+        bf16_entry[name]["launches_dp_world1_nccl"] = total_launches(
+            {k[:-len("_bf16")]: v for k, v in dp_launches.items() if k.endswith("_bf16")}, name)
     for entry in list(kernels):
         name = entry["name"]
         t = bf16_kernel_times[name]

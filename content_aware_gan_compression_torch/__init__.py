@@ -16,8 +16,10 @@ with its CLI (``prune``); the GAN-Slimming sparsity baseline with
 in-training pruning (``train_sparsity``); the image projector with optax's
 L-BFGS or Adam (``get_projected_image``); the FLOPs calculators and the log
 analysis; bf16 compute for retraining (``--dtype bfloat16``) with bf16
-forms of the three kernels, and the retraining benchmark (``bench``). Entry
-points run on ``cuda`` unless the caller passes ``device="cpu"``.
+forms of the three kernels, and the retraining benchmark (``bench``); data
+parallel across processes, one per card (``parallel``; the train CLIs and
+``get_fid`` under ``torchrun --nproc_per_node=N``). Entry points run on
+``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

@@ -11,7 +11,8 @@ size, 3] ``.npy`` memmap (``Uint8CacheDataset``), whose reads are copies.
 ``open_dataset`` takes a ``.npy`` cache, a folder's prebuilt cache, or the
 folder itself, in that order. ``data_loader`` shuffles each epoch and makes
 batches in a producer thread ahead of the consumer; the same seed gives the
-JAX package's batches.
+JAX package's batches. With ``shard=(rank, world)`` it reads only a rank's
+rows of each of those batches.
 
 Without Pillow, PNGs decode through
 ``utils.logging.read_png`` (PNG is lossless: the same pixels as Pillow's),
@@ -24,6 +25,7 @@ from __future__ import annotations
 
 import os
 import queue
+import struct
 import threading
 from concurrent.futures import ThreadPoolExecutor
 
@@ -88,6 +90,20 @@ class FFHQDataset:
         """What decodes the files: Pillow where installed, else ``read_png``."""
         return "Pillow" if _pil() is not None else "read_png (no Pillow: PNG files only)"
 
+    def image_size(self, index: int) -> tuple:
+        """(height, width) of an image from its header, without decoding
+        it: Pillow's lazy open, else a PNG's IHDR."""
+        path = self.images_list[index]
+        image = _pil()
+        if image is not None:
+            with image.open(path) as img:
+                return img.size[1], img.size[0]
+        if not path.lower().endswith(".png"):
+            _need_pil(f"reading the size of {path} (only PNG files are read without it)")
+        with open(path, "rb") as f:
+            width, height = struct.unpack(">II", f.read(24)[16:24])
+        return height, width
+
     def decode(self, index: int) -> np.ndarray:
         """One image as uint8 [H, W, 3], untransformed."""
         path = self.images_list[index]
@@ -145,12 +161,13 @@ class Uint8CacheDataset:
     def __len__(self):
         return self._arr.shape[0]
 
-    def load_batch_uint8(self, idxs, rng: np.random.Generator) -> np.ndarray:
+    def load_batch_uint8(self, idxs, rng: np.random.Generator, rows=slice(None)) -> np.ndarray:
         """One batch [B, H, W, 3] in one sorted read, each image flipped with
-        probability 1/2."""
-        batch = np.ascontiguousarray(self._arr[np.sort(np.asarray(idxs))])
+        probability 1/2; only ``rows`` of it (of the sorted order), with the
+        flips the whole batch draws."""
+        batch = np.ascontiguousarray(self._arr[np.sort(np.asarray(idxs))[rows]])
         if self.random_flip:
-            flips = rng.random(len(idxs)) < 0.5
+            flips = (rng.random(len(idxs)) < 0.5)[rows]
             if flips.any():
                 batch[flips] = batch[flips, :, ::-1]
         return batch
@@ -272,7 +289,8 @@ class DataLoader:
 
 
 def data_loader(dataset, batch_size: int, *, seed: int = 0, num_workers: int = 8,
-                prefetch: int = 4, drop_last: bool = True, uint8_hwc: bool = False) -> DataLoader:
+                prefetch: int = 4, drop_last: bool = True, uint8_hwc: bool = False,
+                shard=None) -> DataLoader:
     """Endless [B, 3, H, W] float32 batches in [-1, 1] (default), or with
     ``uint8_hwc`` [B, H, W, 3] uint8 ones, normalized on the device (a 4x
     smaller copy). Each epoch is a fresh permutation of ``seed``'s
@@ -286,7 +304,23 @@ def data_loader(dataset, batch_size: int, *, seed: int = 0, num_workers: int = 8
     ``integers(0, 2**31, n)`` seeds of per-image generators on the per-image
     paths (a folder read as uint8, and float batches of images of mixed
     sizes). Float batches need an image folder. The producer touches numpy
-    only. Prints one line naming the dataset, its decoder and its resize."""
+    only. Prints one line naming the dataset, its decoder and its resize.
+
+    ``shard=(rank, world)`` gives rank's rows ``[rank*B/world,
+    (rank+1)*B/world)`` of each batch of ``batch_size`` (the global batch):
+    every rank draws the same permutation, flips and per-image seeds from
+    ``seed`` and decodes only its rows (a float batch of a folder reads the
+    other rows' image headers, to take the whole batch's path). ``world``
+    must divide ``batch_size``, and the last partial batch is dropped. Only
+    rank 0 prints."""
+    rank, world = shard or (0, 1)
+    if batch_size % world or not 0 <= rank < world:
+        raise ValueError(f"shard {shard}: a batch of {batch_size} does not split over "
+                         f"{world} ranks")
+    if world > 1 and not drop_last:
+        raise ValueError("a sharded loader drops the last partial batch (drop_last=True)")
+    k = batch_size // world
+    rows = slice(rank * k, (rank + 1) * k)
     if isinstance(dataset, FFHQDataset):
         per_image = "Pillow " + dataset.resample if _pil() else "native bilinear"
         where, decoder = f"folder {dataset.image_folder}", dataset.decoder
@@ -301,27 +335,34 @@ def data_loader(dataset, batch_size: int, *, seed: int = 0, num_workers: int = 8
     if not uint8_hwc:
         native = native_loader.build()  # a failed build raises here, not in the thread
         route = f"float32 [B, 3, H, W] through the native transform ({native.name})"
-    print(f"data_loader: {len(dataset)} images from {where}, {dataset.size}px, decoder "
-          f"{decoder}, resize where not at {dataset.size}px: {resize}; {route} batches of "
-          f"{batch_size}, {num_workers} workers", flush=True)
+    if rank == 0:
+        rows_note = f" (rows {rows.start}-{rows.stop - 1} on each of {world} ranks)" \
+            if world > 1 else ""
+        print(f"data_loader: {len(dataset)} images from {where}, {dataset.size}px, decoder "
+              f"{decoder}, resize where not at {dataset.size}px: {resize}; {route} batches of "
+              f"{batch_size}{rows_note}, {num_workers} workers", flush=True)
 
     def make_batch(pool, rng, idxs):
+        mine = idxs[rows]
         if uint8_hwc:
             if hasattr(dataset, "load_batch_uint8"):
-                return dataset.load_batch_uint8(idxs, rng)
-            seeds = rng.integers(0, 2 ** 31, size=len(idxs))
+                return dataset.load_batch_uint8(idxs, rng, rows)
+            seeds = rng.integers(0, 2 ** 31, size=len(idxs))[rows]
             futs = [pool.submit(dataset.load_uint8, int(i), np.random.default_rng(int(s)))
-                    for i, s in zip(idxs, seeds)]
+                    for i, s in zip(mine, seeds)]
             return np.stack([f.result() for f in futs])
-        raws = [f.result() for f in [pool.submit(dataset.decode, int(i)) for i in idxs]]
-        if len({r.shape for r in raws}) == 1:
-            flips = (rng.random(len(raws)) < 0.5) if dataset.random_flip \
-                else np.zeros(len(raws))
+        raws = [f.result() for f in [pool.submit(dataset.decode, int(i)) for i in mine]]
+        shapes = ({r.shape[:2] for r in raws} if world == 1 else
+                  {dataset.image_size(int(i)) for i in idxs})
+        if len(shapes) == 1:
+            flips = (rng.random(len(idxs)) < 0.5) if dataset.random_flip \
+                else np.zeros(len(idxs))
             return native_loader.transform_batch(np.stack(raws), dataset.size,
-                                                 flips.astype(np.uint8), num_threads=num_workers)
-        seeds = rng.integers(0, 2 ** 31, size=len(idxs))
+                                                 flips[rows].astype(np.uint8),
+                                                 num_threads=num_workers)
+        seeds = rng.integers(0, 2 ** 31, size=len(idxs))[rows]
         futs = [pool.submit(dataset.load, int(i), np.random.default_rng(int(s)))
-                for i, s in zip(idxs, seeds)]
+                for i, s in zip(mine, seeds)]
         return np.stack([f.result() for f in futs])
 
     return DataLoader(make_batch, len(dataset), batch_size, seed=seed, num_workers=num_workers,

@@ -11,6 +11,12 @@ Random draws come from a ``torch.Generator`` on the generator's device: each
 batch draws its z, then its noise maps. The same generator state gives the
 same features in ``extract_feature_from_samples`` and in
 ``OverlappedFIDEval``.
+
+With a process group up (``parallel``), every rank draws each whole batch
+from the same stream, runs its rows where the world size divides the batch
+(else the whole batch, as the JAX package replicates a batch its mesh does
+not divide), and gathers the batch's features: every rank holds the same
+stream of features and the same score.
 """
 
 from __future__ import annotations
@@ -23,6 +29,8 @@ import warnings
 
 import numpy as np
 import torch
+
+from .. import parallel
 
 # the feature function both sides of the Frechet distance must share: the
 # patched FID InceptionV3 fed [-1, 1] images raw (normalize_input=False,
@@ -43,10 +51,17 @@ def _feature_step(g, inception, z, *, noise=None, generator=None, truncation=1.0
 
 
 def _draw_features(g, inception, batch_size, generator, truncation, truncation_latent):
-    """z, then the noise maps, from ``generator``; the batch's features."""
+    """z, then the noise maps, from ``generator``; the batch's features
+    (its rows on each rank, then gathered, where the world size divides
+    it)."""
     z = torch.randn(batch_size, g.config.style_dim, generator=generator, device=g.device)
-    return _feature_step(g, inception, z, generator=generator, truncation=truncation,
-                         truncation_latent=truncation_latent)
+    noise = g.make_noise(batch_size, generator)
+    split = batch_size % parallel.world_size() == 0
+    if split:
+        z, noise = parallel.shard_rows(z), [parallel.shard_rows(n) for n in noise]
+    feats = _feature_step(g, inception, z, noise=noise, truncation=truncation,
+                          truncation_latent=truncation_latent)
+    return parallel.gather_rows(feats) if split else feats
 
 
 def _default_generator(g, generator):

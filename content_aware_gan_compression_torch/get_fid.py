@@ -10,6 +10,12 @@ reference's ``{'mean', 'cov'}`` format, e.g. from ``calc_inception``) or an
 image folder (``--real_images``, needs Pillow). z and noise come from one
 ``torch.Generator(device)`` seeded with ``--seed``. Runs on ``cuda`` unless
 ``--device cpu`` is given.
+
+Under torchrun (``torchrun --nproc_per_node=N -m
+content_aware_gan_compression_torch.get_fid ...``) each process takes
+``cuda:LOCAL_RANK``, every rank draws the same sample stream and runs its
+rows of each batch, the features are gathered, and rank 0 prints (the JAX
+CLI's mesh over all local devices). ``--batch_size`` is the global batch.
 """
 
 from __future__ import annotations
@@ -38,13 +44,21 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(argv)
 
+    from . import parallel
+
+    with parallel.process_group(args.device) as device:
+        return _score(args, device)
+
+
+def _score(args, device):
+    """The FID of ``args.ckpt`` on ``device``; rank 0 prints."""
     import torch
 
+    from . import parallel
     from .evaluation import compute_real_stats_from_folder, get_model_fid_score
     from .models import load_fid_inception
-    from .utils import load_generator, resolve_device
+    from .utils import load_generator
 
-    device = resolve_device(args.device)
     g = load_generator(args.ckpt, args.generated_img_size, args.latent, args.n_mlp,
                        device=device)
     if not os.path.exists(args.inception_ckpt):
@@ -58,18 +72,18 @@ def main(argv=None):
     elif args.real_images:
         real_stats = compute_real_stats_from_folder(
             args.real_images, inception, size=args.generated_img_size,
-            batch_size=args.batch_size, info_print=args.info_print)
+            batch_size=args.batch_size, info_print=args.info_print and parallel.is_main())
     else:
         raise ValueError("need --real_stats or --real_images")
 
-    print(f"Number of samples: {args.n_sample}")
+    parallel.main_print(f"Number of samples: {args.n_sample}")
     start_time = time.time()
     fid = get_model_fid_score(g, inception, real_stats, batch_size=args.batch_size,
                               num_sample=args.n_sample,
                               generator=torch.Generator(device).manual_seed(args.seed),
-                              info_print=args.info_print)
-    print(f"Total time is: {round(time.time() - start_time, 4)}")
-    print(f"FID Scores: {fid}\n")
+                              info_print=args.info_print and parallel.is_main())
+    parallel.main_print(f"Total time is: {round(time.time() - start_time, 4)}")
+    parallel.main_print(f"FID Scores: {fid}\n")
     return fid
 
 

@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import parallel
 from ..ops import blur, fused_leaky_relu, fused_noise_bias_lrelu, make_kernel, upsample_2d
 from ..utils.runtime import resolve_device
 
@@ -651,15 +652,21 @@ def minibatch_stddev(x_nhwc, group_size: int, stddev_feat: int):
     """Minibatch stddev feature (reference model.py:780-791). Samples are
     grouped with stride B//group (a view(group, -1, ...) over dim 0); the
     biased std across each group, averaged over H, W and C//feat, is appended
-    as ``stddev_feat`` constant channels."""
-    b, h, w, c = x_nhwc.shape
+    as ``stddev_feat`` constant channels.
+
+    With a process group up, B is the global batch, as on the JAX package's
+    mesh: the ranks' rows are gathered (``parallel.gather_rows``), grouped
+    as one batch, and each rank keeps the features of its own rows."""
+    xg = parallel.gather_rows(x_nhwc)
+    b, h, w, c = xg.shape
     group = min(b, group_size)
     m = b // group
-    y = x_nhwc.reshape(group, m, h, w, stddev_feat, c // stddev_feat).float()
+    y = xg.reshape(group, m, h, w, stddev_feat, c // stddev_feat).float()
     std = torch.sqrt(y.var(dim=0, unbiased=False) + 1e-8)  # [m, H, W, feat, C/feat]
     std = std.mean(dim=(1, 2, 4))  # [m, feat]
     # sample g*m + j takes std[j] (the reference's .repeat(group, 1, H, W))
-    std = std.repeat(group, 1)[:, None, None, :].expand(b, h, w, stddev_feat)
+    std = parallel.shard_rows(std.repeat(group, 1))
+    std = std[:, None, None, :].expand(x_nhwc.shape[0], h, w, stddev_feat)
     return torch.cat([x_nhwc, std.to(x_nhwc.dtype)], dim=-1)
 
 

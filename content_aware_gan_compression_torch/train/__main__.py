@@ -8,9 +8,18 @@ Every reference flag keeps its name and default; boolean flags parse with
 ``str2bool``. ``--device`` (default ``cuda``) picks the card or the CPU.
 ``--dtype bfloat16`` runs the steps in bfloat16 and ``--opt_state_dtype
 bfloat16`` stores Adam's second moment in it, as in the JAX CLI. The JAX
-CLI's TPU flags (``--n_devices``, ``--remat``, ``--packed_trunk``,
-``--steps_per_dispatch``, ``--input_put``, ``--data_echo``) have no
-counterpart.
+CLI's TPU flags (``--remat``, ``--packed_trunk``, ``--steps_per_dispatch``,
+``--input_put``, ``--data_echo``) have no counterpart.
+
+Data parallel: the JAX CLI's ``--n_devices N`` is torchrun's
+``--nproc_per_node=N`` here,
+
+    torchrun --nproc_per_node=N -m content_aware_gan_compression_torch.train ...
+
+Each process trains on ``cuda:LOCAL_RANK`` (NCCL; gloo with ``--device
+cpu``), ``--batch_size`` is the global batch, split over the processes, and
+rank 0 writes the log, the sample grids and the checkpoints. Without
+torchrun's environment the CLI runs one process.
 
 The content-aware KD mask and the LPIPS term need the aux nets' weights:
 BiSeNet from ``--parsing_ckpt`` (the reference's ``79999_iter.pth`` schema),
@@ -121,7 +130,9 @@ def aux_nets_from_args(args, cfg):
     """(cfg, LPIPS or None, BiSeNet or None), loaded on the CPU from the
     flags' files where the objective needs them (the JAX CLI's
     train.py:146-166): without VGG16 weights the LPIPS term is dropped
-    (``kd_lpips_lambda`` 0), without BiSeNet weights the KD mask."""
+    (``kd_lpips_lambda`` 0), without BiSeNet weights the KD mask; rank 0
+    prints the warning."""
+    from .. import parallel
     from ..models import load_bisenet, load_lpips
 
     lpips = parser = None
@@ -129,14 +140,15 @@ def aux_nets_from_args(args, cfg):
         if os.path.exists(args.lpips_vgg_ckpt):
             lpips = load_lpips(args.lpips_vgg_ckpt, args.lpips_lins_ckpt, device="cpu")
         else:
-            print(f"WARNING: no VGG weights at {args.lpips_vgg_ckpt}; LPIPS KD disabled")
+            parallel.main_print(f"WARNING: no VGG weights at {args.lpips_vgg_ckpt}; "
+                                "LPIPS KD disabled")
             cfg = dataclasses.replace(cfg, kd_lpips_lambda=0.0)
     if cfg.teacher and cfg.content_aware_KD:
         if os.path.exists(args.parsing_ckpt):
             parser = load_bisenet(args.parsing_ckpt, device="cpu")
         else:
-            print(f"WARNING: no BiSeNet weights at {args.parsing_ckpt}; "
-                  "content-aware KD masking disabled")
+            parallel.main_print(f"WARNING: no BiSeNet weights at {args.parsing_ckpt}; "
+                                "content-aware KD masking disabled")
     return cfg, lpips, parser
 
 
@@ -153,14 +165,22 @@ def fid_from_args(args):
 
 def main(argv=None):
     args = parse_args(argv)
-    cfg, lpips, parser = aux_nets_from_args(args, config_from_args(args))
-    inception, real_stats = fid_from_args(args)
+    from .. import parallel
 
-    from ..utils import ExperimentLogger
+    with parallel.process_group(args.device) as device:
+        _train(args, device)
+
+
+def _train(args, device):
+    """The run of the flags on ``device``; rank 0 logs."""
+    from .. import parallel
+    from ..utils import ExperimentLogger, NullLogger
     from .loop import Trainer
 
-    logger = ExperimentLogger(args.exp_root)
-    trainer = Trainer(cfg, device=args.device, exp_root=args.exp_root, lpips_params=lpips,
+    cfg, lpips, parser = aux_nets_from_args(args, config_from_args(args))
+    inception, real_stats = fid_from_args(args)
+    logger = ExperimentLogger(args.exp_root) if parallel.is_main() else NullLogger()
+    trainer = Trainer(cfg, device=device, exp_root=args.exp_root, lpips_params=lpips,
                       parse_params=parser, inception_params=inception, real_stats=real_stats)
     status = (
         "\n--------------- Training Start ---------------\n\n"
@@ -174,7 +194,8 @@ def main(argv=None):
         f"    Initial Checkpoint: {cfg.ckpt}\n"
         f"    Load Training State: {cfg.load_train_state}\n\n"
         f"  Device:\n"
-        f"    {trainer.device}\n"
+        f"    {trainer.device}, {parallel.world_size()} process(es), global batch "
+        f"{cfg.batch_size}\n"
         f"    Compute dtype: {cfg.compute_dtype}\n\n"
         f"  Training Params:\n"
         f"    Training Iterations: {cfg.training_iters}\n"
@@ -192,13 +213,13 @@ def main(argv=None):
         f"    L1 Knowledge Distillation Mode: {cfg.kd_mode}\n"
         f"    LPIPS Knowledge Distillation Weight: {cfg.kd_lpips_lambda}\n"
         f"    Content Aware: {cfg.content_aware_KD}\n\n")
-    print(status)
+    parallel.main_print(status)
     logger.write(status)
     t0 = time.time()
     trainer.run(logger=logger)
     logger.write(f"\nTotal training time: {round(time.time() - t0, 3)}")
     logger.close()
-    print(f"logs, samples and checkpoints in {logger.exp_dir}")
+    parallel.main_print(f"logs, samples and checkpoints in {logger.exp_dir}")
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 """The distillation retraining loop (reference train.py:341-452; the JAX
 package's train/loop.py): D and G steps with the lazy regularizers' cadence,
 EMA, reference-format logs, sample grids, in-loop FID and checkpoints with
-optimizer state, on one card.
+optimizer state, on one card or data parallel over processes (``parallel``;
+the JAX package's mesh).
 
 Not ported, because they answer TPU and relay costs that a card on PCIe does
 not have: the input-put probe and controller, the K-step scan window, data
@@ -18,6 +19,7 @@ import time
 
 import torch
 
+from .. import parallel
 from ..data import data_loader, open_dataset
 from ..evaluation.fid import OverlappedFIDEval, get_model_fid_score
 from ..models.stylegan2 import Discriminator, DiscriminatorConfig, Generator, GeneratorConfig
@@ -25,7 +27,7 @@ from ..utils.checkpoint import (
     build_bisenet_from_state_dict, build_discriminator_from_state_dict,
     build_generator_from_state_dict, build_inception_from_state_dict, build_lpips_from_state_dict,
     load_optimizer_state, load_training_checkpoint, optimizer_state_to_jax, save_checkpoint)
-from ..utils.logging import ExperimentLogger, save_image_grid
+from ..utils.logging import ExperimentLogger, NullLogger, save_image_grid
 from ..utils.runtime import resolve_device
 from .config import TrainConfig
 from .steps import (
@@ -66,6 +68,16 @@ class Trainer:
     Trainer hands it to ``make_train_steps`` and nowhere else: ``g_ema``'s
     sample grids and the in-loop FID run in float32 there and here.
     ``cfg.opt_state_dtype`` is the type both optimizers store ``nu`` in.
+
+    With a process group up (``parallel.initialize``), each process is one
+    rank of the JAX package's data mesh: ``cfg.batch_size`` is the global
+    batch, ``step`` takes the rank's rows of the real batch (``run``'s loader
+    reads only those), every rank draws the same global draws from the one
+    stream and keeps its rows, and the weights, checked equal on every rank
+    at construction, stay replicated. ``run`` averages the logged metrics
+    over ranks once per iteration; every rank renders the sample grid and
+    runs the FID, so the streams stay in step, and only rank 0 writes the
+    log, the grid and the checkpoints.
     """
 
     def __init__(self, cfg: TrainConfig, *, device="cuda", exp_root=".", lpips_params=None,
@@ -133,6 +145,14 @@ class Trainer:
                 except ValueError:
                     self.start_iter = 0
         self.gen = torch.Generator(device).manual_seed(cfg.seed)
+        world = parallel.world_size()
+        path_batch = max(1, cfg.batch_size // cfg.path_reg_batch_shrink)
+        if cfg.batch_size % world or path_batch % world:
+            raise ValueError(f"batch {cfg.batch_size} (path batch {path_batch}) does not "
+                             f"split over {world} ranks")
+        for net in (self.g, self.g_ema, self.d, self.teacher):
+            if net is not None:
+                parallel.broadcast_module(net)
 
     # -------------------------------------------------------------------------
     def draw(self, iter_idx: int) -> dict:
@@ -211,10 +231,11 @@ class Trainer:
     def open_loader(self, seed: int):
         """``run``'s batches: uint8 [B, H, W, 3] from ``cfg.data_folder``
         (a ``.npy`` cache, a folder's cache, or the folder's images decoded
-        per read; ``open_dataset``). A trainer that reads data otherwise
-        overrides this."""
+        per read; ``open_dataset``), the rank's rows of each global batch.
+        A trainer that reads data otherwise overrides this."""
         dataset = open_dataset(self.cfg.data_folder, self.cfg.generated_img_size)
-        return data_loader(dataset, self.cfg.batch_size, seed=seed, uint8_hwc=True)
+        return data_loader(dataset, self.cfg.batch_size, seed=seed, uint8_hwc=True,
+                           shard=(parallel.rank(), parallel.world_size()))
 
     def log_iteration(self, logger, iter_idx: int, train_time: float, metrics: dict):
         """``run``'s line and record of one iteration."""
@@ -241,7 +262,10 @@ class Trainer:
         after each step and is drained before ``run`` returns; its score is
         logged with the iteration it started at. ``phase_hook`` goes to
         ``step`` and is also called with 'sample' and the event's name after
-        those. Batches come from ``open_loader``, closed when ``run`` ends."""
+        those. Batches come from ``open_loader``, closed when ``run`` ends.
+        On ranks other than 0 the logger is a ``NullLogger``."""
+        if not parallel.is_main():
+            logger = NullLogger()
         logger = logger or ExperimentLogger(self.exp_root)
         loader = self.open_loader(data_seed if data_seed is not None else self.cfg.seed)
         try:
@@ -286,8 +310,8 @@ class Trainer:
             metrics, mean_path_length = self.step(it, next(loader), mean_path_length,
                                                   phase_hook=phase_hook)
             keys = sorted(metrics)
-            packed = torch.stack([metrics[k].float() for k in keys]
-                                 + [mean_path_length.float()])
+            packed = parallel.mean_over_ranks(torch.stack(
+                [metrics[k].float() for k in keys] + [mean_path_length.float()]))
             fid_tick(cfg.fid_batches_per_iter)
             if pending is not None:
                 flush(pending)
@@ -298,17 +322,19 @@ class Trainer:
                 flush(pending)
                 pending = None
                 if it % cfg.val_sample_freq == 0:
-                    with torch.no_grad():
+                    with torch.no_grad():  # on every rank: it draws from the stream
                         sample = self.g_ema([sample_z], generator=self.gen)
-                    save_image_grid(sample.cpu(), os.path.join(
-                        logger.sample_dir, f"{str(it).zfill(6)}.png"),
-                        nrow=int(cfg.val_sample_num ** 0.5))
+                    if parallel.is_main():
+                        save_image_grid(sample.cpu(), os.path.join(
+                            logger.sample_dir, f"{str(it).zfill(6)}.png"),
+                            nrow=int(cfg.val_sample_num ** 0.5))
                     hook("sample")
                 if it % cfg.model_save_freq == 0 and it > 0:
                     if self.inception is not None:
                         fid_tick(10 ** 9)  # finish a straggler first
                         fid["eval"], fid["iter"] = self.start_fid(logger, it), it
-                    self.save(logger, it)
+                    if parallel.is_main():
+                        self.save(logger, it)
                 if event:
                     hook(self.event(it, logger))
         fid_tick(10 ** 9)

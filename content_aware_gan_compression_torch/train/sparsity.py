@@ -27,6 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import parallel
 from ..data import FFHQDataset, data_loader
 from ..models.stylegan2 import default_net_shape
 from ..pruning import (
@@ -47,10 +48,12 @@ PRUNE_SAMPLES = 500  # latents scored at a prune event (reference train_sparsity
 
 def l1_style_sparse_loss(style_list, eta):
     """eta * sum over layers of ||mean over the batch of s||_1 (reference
-    train_sparsity.py:261-274)."""
+    train_sparsity.py:261-274); the batch is the global one with a process
+    group up (the mean is inside the absolute value, so a mean per rank
+    would be another loss)."""
     total = 0.0
     for s in style_list:
-        total = total + s.mean(0).abs().sum()
+        total = total + parallel.global_mean(s, dim=0).abs().sum()
     return eta * total
 
 
@@ -135,6 +138,7 @@ def sparse_g_step(g, g_opt, d, draws, cfg, opts, teacher=None, lpips=None,
         total = total + kd_l1 + kd_p
     g_opt.zero_grad(set_to_none=True)
     total.backward(inputs=list(g.parameters()))
+    parallel.all_reduce_grads(g.parameters())
     g_opt.step()
     return metrics
 
@@ -170,7 +174,8 @@ class SparsityTrainer(Trainer):
         if self.cfg.data_folder.endswith(".npy"):
             return super().open_loader(seed)
         dataset = FFHQDataset(self.cfg.data_folder, self.cfg.generated_img_size)
-        return data_loader(dataset, self.cfg.batch_size, seed=seed)
+        return data_loader(dataset, self.cfg.batch_size, seed=seed,
+                           shard=(parallel.rank(), parallel.world_size()))
 
     def prune_in_training(self, z=None):
         """Score ``g_ema`` on ``z`` (``PRUNE_SAMPLES`` latents drawn from the
@@ -178,7 +183,12 @@ class SparsityTrainer(Trainer):
         ``g_ema`` to the new widths and rebuild both optimizers from scratch
         (reference Prune_Generator, train_sparsity.py:424-457). Returns
         (new net_shape, its styled-conv FLOPs as a percentage of the 256px
-        generator's)."""
+        generator's).
+
+        With a process group up every rank draws and scores (the stream
+        stays in step) and takes rank 0's masks, so every rank cuts to the
+        same widths; the new optimizers hold the new parameters, and
+        ``all_reduce_grads`` takes its bucket from them at each step."""
         cfg, opts = self.cfg, self.opts
         if z is None:
             z = torch.randn(PRUNE_SAMPLES, cfg.latent, generator=self.gen, device=self.device)
@@ -189,6 +199,7 @@ class SparsityTrainer(Trainer):
             score, net_shape, pruning_mode=opts["pruning_mode"],
             lay_rmve_ratio=opts["lay_rmve_ratio"], num_rmve_channel=opts["num_rmve_channel"],
             full_shape_256=None if cfg.generated_img_size == 256 else net_shape)
+        masks = parallel.broadcast_object(masks)
         rebuild = [build_generator_from_state_dict(
             mask_the_generator(net.state_dict(), masks), cfg.generated_img_size, cfg.latent,
             cfg.n_mlp, device=self.device) for net in (self.g, self.g_ema)]

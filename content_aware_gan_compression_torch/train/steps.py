@@ -11,6 +11,13 @@ Each step differentiates only its own network: the other one runs without
 gradients or is left out of ``backward(inputs=...)``, which is what the
 reference's requires_grad toggling does.
 
+With a process group up (``parallel``), ``cfg.batch_size`` is the global
+batch: ``draw_*`` draw it whole from the one stream on every rank and each
+rank keeps its rows (the mixing point is shared), the real batch comes in as
+the rank's rows, each step all-reduces its network's gradients before the
+optimizer's step, and the path-length mean is the global batch's, as on the
+JAX package's mesh. Without one they are the one-process steps.
+
 ``dtype`` is the compute type of the networks (the JAX package's
 ``make_train_steps(dtype=...)``; ``TrainConfig.compute_dtype``): the
 generators, D and the aux nets run in it, D's logits and the losses in
@@ -22,6 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import parallel
 from ..models.bisenet import make_parse_fn
 from .config import LPIPS_IMAGE_SIZE
 from .losses import d_logistic_loss, g_nonsaturating_loss, kd_loss, r1_penalty
@@ -138,28 +146,34 @@ def prepare_real(batch, device) -> torch.Tensor:
 
 
 def draw_mixing(gen, batch: int, cfg, n_latent: int, device):
-    """Two z draws and the mixing point (reference mixing_noise,
-    train.py:218-237): ``inject_index`` is uniform in [1, n_latent) with
-    probability ``noise_mixing`` and ``n_latent`` (no mixing) otherwise. It
-    stays on the device, so no draw waits for the host."""
+    """Two z draws of the global ``batch`` and the mixing point (reference
+    mixing_noise, train.py:218-237): ``inject_index`` is uniform in [1,
+    n_latent) with probability ``noise_mixing`` and ``n_latent`` (no mixing)
+    otherwise. It stays on the device, so no draw waits for the host. Each
+    rank keeps its rows of z."""
     z = torch.randn(2, batch, cfg.latent, generator=gen, device=device)
     do_mix = torch.rand((), generator=gen, device=device) < cfg.noise_mixing
     index = torch.randint(1, n_latent, (), generator=gen, device=device)
-    return [z[0], z[1]], torch.where(do_mix, index, torch.full_like(index, n_latent))
+    return ([parallel.shard_rows(z[0]), parallel.shard_rows(z[1])],
+            torch.where(do_mix, index, torch.full_like(index, n_latent)))
+
+
+def _noise(net, batch, gen):
+    """``net``'s noise maps for the global ``batch``; the rank's rows."""
+    return [parallel.shard_rows(n) for n in net.make_noise(batch, gen)]
 
 
 def draw_d(gen, g, cfg) -> dict:
     """Draws of the D step: the fake batch's latents and noise."""
     zs, inject_index = draw_mixing(gen, cfg.batch_size, cfg, g.config.n_latent, g.device)
-    return {"z": zs, "inject_index": inject_index,
-            "noise": g.make_noise(cfg.batch_size, gen)}
+    return {"z": zs, "inject_index": inject_index, "noise": _noise(g, cfg.batch_size, gen)}
 
 
 def draw_g(gen, g, cfg, teacher=None) -> dict:
     """Draws of the G step: latents and noise, and the teacher's own noise."""
     out = draw_d(gen, g, cfg)
     if teacher is not None:
-        out["teacher_noise"] = teacher.make_noise(cfg.batch_size, gen)
+        out["teacher_noise"] = _noise(teacher, cfg.batch_size, gen)
     return out
 
 
@@ -169,8 +183,10 @@ def draw_g_reg(gen, g, cfg) -> dict:
     batch = max(1, cfg.batch_size // cfg.path_reg_batch_shrink)
     zs, inject_index = draw_mixing(gen, batch, cfg, g.config.n_latent, g.device)
     size = g.config.size
-    return {"z": zs, "inject_index": inject_index, "noise": g.make_noise(batch, gen),
-            "ppl_noise": torch.randn(batch, size, size, 3, generator=gen, device=g.device)}
+    noise = _noise(g, batch, gen)  # before ppl_noise: the stream's order
+    ppl_noise = torch.randn(batch, size, size, 3, generator=gen, device=g.device)
+    return {"z": zs, "inject_index": inject_index, "noise": noise,
+            "ppl_noise": parallel.shard_rows(ppl_noise)}
 
 
 # ---------------------------------------------------------------------------
@@ -199,6 +215,7 @@ def d_step(g, d, d_opt, real, draws, cfg, dtype=None) -> dict:
     loss = d_logistic_loss(real_pred.float(), fake_pred.float())
     d_opt.zero_grad(set_to_none=True)
     loss.backward()
+    parallel.all_reduce_grads(d.parameters())
     d_opt.step()
     return {"d": loss.detach(), "real_score": real_pred.detach().mean(),
             "fake_score": fake_pred.detach().mean()}
@@ -210,6 +227,7 @@ def d_reg_step(d, d_opt, real, cfg, dtype=None) -> dict:
     r1 = r1_penalty(d, real, dtype)
     d_opt.zero_grad(set_to_none=True)
     (cfg.discriminator_r1 / 2 * r1 * cfg.d_reg_freq).backward()
+    parallel.all_reduce_grads(d.parameters())
     d_opt.step()
     return {"r1": r1.detach()}
 
@@ -248,21 +266,26 @@ def g_step(g, g_opt, d, draws, cfg, teacher=None, lpips=None, parser=None,
         total = g_loss + kd_l1 + kd_lpips
     g_opt.zero_grad(set_to_none=True)
     total.backward(inputs=list(g.parameters()))
+    parallel.all_reduce_grads(g.parameters())
     g_opt.step()
     return metrics
 
 
 def g_reg_step(g, g_opt, draws, mean_path_length, cfg, dtype=None):
     """G path-length step (reference G_Reg_BackProp): the path lengths'
-    spread around their running mean, decayed by 0.01. Returns (the new
-    running mean, metrics)."""
+    spread around their running mean, decayed by 0.01. The batch mean inside
+    the loss is the global batch's (``parallel.global_mean``), differentiated
+    as the JAX package differentiates it. Returns (the new running mean,
+    metrics)."""
     _, path_lengths = g(draws["z"], inject_index=draws["inject_index"], noise=draws["noise"],
                         PPL_regularize=True, ppl_noise=draws["ppl_noise"], dtype=dtype)
-    path_mean = mean_path_length + 0.01 * (path_lengths.mean() - mean_path_length)
+    path_mean = mean_path_length + 0.01 * (parallel.global_mean(path_lengths)
+                                           - mean_path_length)
     path_loss = torch.mean(torch.square(path_lengths - path_mean))
     g_opt.zero_grad(set_to_none=True)
     (cfg.generator_path_reg_weight * cfg.g_reg_freq * path_loss).backward(
         inputs=list(g.parameters()))
+    parallel.all_reduce_grads(g.parameters())
     g_opt.step()
     return path_mean.detach(), {"path": path_loss.detach(),
                                 "path_length": path_lengths.detach().mean()}

@@ -13,6 +13,12 @@ percept term needs VGG16 weights (``--lpips_vgg_ckpt``, torchvision's
 ``features.N.*``; with ``--kd_percept_mode LPIPS`` also the heads,
 ``--lpips_lins_ckpt``); when the VGG16 file is absent the term is dropped
 with a warning. ``--device`` (default ``cuda``) picks the card or the CPU.
+
+Under ``torchrun --nproc_per_node=N -m
+content_aware_gan_compression_torch.train_sparsity ...`` each process
+trains on ``cuda:LOCAL_RANK``, ``--batch`` is the global batch, every rank
+prunes to rank 0's widths, and rank 0 writes the log and the checkpoints, as
+for ``train``.
 """
 
 from __future__ import annotations
@@ -71,9 +77,20 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
+    from . import parallel
+
+    with parallel.process_group(args.device) as device:
+        return _train(args, device)
+
+
+def _train(args, device):
+    """The run of the flags on ``device``; rank 0 logs. Returns rank 0's
+    experiment folder (None on the other ranks)."""
+    from . import parallel
     from .train import TrainConfig
     from .train.sparsity import SparsityTrainer
-    from .utils import ExperimentLogger
+    from .utils import ExperimentLogger, NullLogger
+
 
     cfg = TrainConfig(
         data_folder=args.path, generated_img_size=args.size, ckpt=args.ckpt,
@@ -95,18 +112,19 @@ def main(argv=None):
 
             lpips = load_lpips(args.lpips_vgg_ckpt, args.lpips_lins_ckpt, device="cpu")
         else:
-            print(f"WARNING: no VGG weights at {args.lpips_vgg_ckpt}; percept KD disabled")
+            parallel.main_print(f"WARNING: no VGG weights at {args.lpips_vgg_ckpt}; "
+                                "percept KD disabled")
 
     trainer = SparsityTrainer(
         cfg, dict(sparsity_eta=args.sparsity_eta, model_prune_freq=args.model_prune_freq,
                   lay_rmve_ratio=args.lay_rmve_ratio, num_rmve_channel=args.num_rmve_channel,
                   prune_metric=args.prune_metric, pruning_mode=args.pruning_mode,
                   kd_percept_mode=args.kd_percept_mode),
-        device=args.device, exp_root=args.exp_root, lpips_params=lpips)
-    logger = ExperimentLogger(args.exp_root)
+        device=device, exp_root=args.exp_root, lpips_params=lpips)
+    logger = ExperimentLogger(args.exp_root) if parallel.is_main() else NullLogger()
     trainer.run(logger=logger)
     logger.close()
-    print(f"logs, samples and checkpoints in {logger.exp_dir}")
+    parallel.main_print(f"logs, samples and checkpoints in {logger.exp_dir}")
     return logger.exp_dir
 
 

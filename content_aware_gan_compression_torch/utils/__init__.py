@@ -17,7 +17,7 @@ from .checkpoint import (
     state_dict_from_jax,
     torch_state_dict_to_pytree,
 )
-from .logging import ExperimentLogger, save_image_grid
+from .logging import ExperimentLogger, NullLogger, save_image_grid
 from .runtime import resolve_device
 
 __all__ = [
@@ -37,6 +37,7 @@ __all__ = [
     "state_dict_from_jax",
     "torch_state_dict_to_pytree",
     "ExperimentLogger",
+    "NullLogger",
     "save_image_grid",
     "resolve_device",
 ]

@@ -209,3 +209,25 @@ class ExperimentLogger:
     def close(self):
         self._txt.close()
         self._jsonl.close()
+
+
+class NullLogger:
+    """``ExperimentLogger``'s interface writing nothing: the logger of the
+    ranks other than 0 in a data-parallel run."""
+
+    exp_dir = sample_dir = ckpt_dir = None
+
+    def write(self, text: str):
+        pass
+
+    def log_iteration(self, iter_idx: int, train_time: float, m: dict):
+        pass
+
+    def log_fid(self, fid: float, iter_idx: int | None = None):
+        pass
+
+    def log_event(self, record: dict):
+        pass
+
+    def close(self):
+        pass
