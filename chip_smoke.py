@@ -56,9 +56,9 @@ Phases, each of which exits non-zero on failure:
      PyTorch library call each (blur4 at the generator's, the
      discriminator's and the student's largest shapes), the generator's
      images/s, the training iterations/s over one cadence window of 16
-     iterations with the full objective and over its first 8 with KD-L1,
-     with peak memory and where the device time goes, and LPIPS and the
-     parse alone at the G step's shapes;
+     iterations with the full objective and over its first 8 with KD-L1
+     (PyTorch's defaults), with peak memory and where the device time goes,
+     and LPIPS and the parse alone at the G step's shapes;
  10. drive the FID path at 256px (get_fid's batch of 64, 2048 samples cut
      from 50 000): the full-width generator (seed 0) and a full-width seeded
      Inception; check 6 blur4 launches (float4) and 13 epilogue launches per
@@ -108,8 +108,8 @@ Phases, each of which exits non-zero on failure:
      the prune and on the lanes its new widths give after it), the new
      net_shape (at least 589 channels removed) and its FLOPs % in the log;
  20. the sparsity rates: iterations/s over iterations 16-23 before and after
-     a prune event, with TF32 off and under the defaults, the prune event's
-     seconds and peak memory;
+     a prune event, under PyTorch's defaults, the prune event's seconds and
+     peak memory;
  21. one sparse G step at 64px on the card and on the CPU, each against
      float64 (phase 7's bound, cuDNN deterministic, TF32 off);
  22. ``python -m content_aware_gan_compression_torch.train_sparsity`` for 4
@@ -120,8 +120,8 @@ Phases, each of which exits non-zero on failure:
      multiples of 4, so scalar lanes);
  23. drive the projector at 256px (the full-width generator, its noise
      weights drawn, and a full-width seeded LPIPS) on one of the generator's
-     samples: Adam for 100 iterations and L-BFGS (optax's, with its zoom line
-     search) for 20, the latent and the noise maps optimized, 4096 samples
+     samples: Adam for 50 iterations and L-BFGS (optax's, with its zoom line
+     search) for 10, the latent and the noise maps optimized, 4096 samples
      for the mean latent, with TF32 off and under the defaults; each
      evaluation launches blur4 6 times forward and 6 backward, the epilogue
      13 times and masked_scale 13 times; both losses decrease and the noise
@@ -131,7 +131,8 @@ Phases, each of which exits non-zero on failure:
      a PNG written by ``write_png`` (read without Pillow where Pillow is
      absent): the printed scores and the side-by-side PNG.
  25. ``python -m content_aware_gan_compression_torch.bench`` with its
-     defaults (bfloat16, full_kd, 64 iterations after 33): its one JSON line.
+     defaults (bfloat16, full_kd) over 32 iterations after 9: its one JSON
+     line.
  26. the training data path on the card's host: 64 seeded PNGs at 512px and
      64 at 256px (``write_png``); the native batch transform's build seconds
      and its images/s at 512 -> 256, batch 16, with the host's threads,
@@ -153,13 +154,30 @@ Phases, each of which exits non-zero on failure:
  29. ``ModulatedConv2d(downsample=True)`` on [16, 256, 256, 128] in float32
      and bfloat16 against the same conv with the plain blur (float32 1e-5
      of the largest value, bfloat16 bit for bit), one blur4 launch with pad
-     (2, 2) each.
+     (2, 2) each;
+ 30. path_1024, the 1024px operating point with remat (the checkpointed
+     resolution blocks of G and res-blocks of D): ``kernels_1024_vs_plain``
+     (the three kernels against their plain versions at every shape of the
+     1024px retraining path at batch 16 and path batch 8, forward and
+     backward, float32 and bfloat16, the epilogue at FID's [64, 1024, 1024,
+     32] of 2^31 elements, and their times), ``train_1024`` (bf16 full_kd at
+     1024px, the 11x student, full teacher and D, batch 16, iterations 0-4
+     with --remat and without, launches per phase against
+     train_phase_launches's remat and plain forms, finite losses, peak
+     memory, and the in-loop FID's extra memory at fid_batch 32 beside the
+     resident trainer), ``remat_vs_plain_64`` (iteration 0 at 64px, float32,
+     TF32 off, lr 0, with remat against without: every gradient tensor
+     within 1e-5 of its largest value) and ``generate_fid_1024`` (generate
+     --size 1024, a feature stream at fid_batch 32 and 64 with 8 blur4 and
+     17 epilogue launches per batch, Inception's pool3 features of 2 of the
+     card's images, card vs CPU, to 1e-3).
 bfloat16, between phases 5 and 8: ``bf16_kernels_vs_plain`` (5b: the
 three kernels in bfloat16 against their plain versions, forward bit for bit
 at the generator's, the student's and D's shapes, backward and double
 backward to 2^-7 of the largest value, and their times against the bfloat16
 bytes bound), ``train_bf16_vs_float64`` (7b: phase 7's check of full_kd in
-bfloat16, card <= 2 x CPU + 1e-3) and ``train_rate_bf16`` (7c: the full_kd
+bfloat16, card <= 2 x CPU + 1e-3, against phase 7's float64 run, kept when
+its draws and parser are the same) and ``train_rate_bf16`` (7c: the full_kd
 path in bfloat16 at 256px, iterations 0-4 with every launch a bfloat16 one
 and as many as ``train_phase_launches`` wants, no bfloat16 blur in the
 general ``upfirdn2d``; then train_rate's window with Adam's second moment in
@@ -180,12 +198,17 @@ the ranks' gradients bit-equal, each rank's launches per phase) and
 ``dp_nccl_cards`` (8d: with 2 cards, the train CLI under ``torchrun
 --nproc_per_node=2`` at 256px, bfloat16 full_kd, global batch 16, it/s and
 images/s; with one card it prints ``dp_nccl_cards: not run, 1 card``).
+The checks against the host's CPU (phases 7 and 7b, 12's CPU side, 17
+and 21) run in a thread beside the phase after them (8, 13, 18, 22), which
+drives its CLIs, and report after it; that phase's seconds then include
+the CPU's share of the work beside it.
 The last lines are a {"kernels": [...]} JSON line, the card's name and power
 limit, and {"ok": true, "device": {...}}. Each phase's JSON line also goes to
 chiprun_out/chip_smoke_details.jsonl. Needs a CUDA card; without one it
 exits non-zero and prints no result.
 """
 
+import concurrent.futures
 import contextlib
 import copy
 import dataclasses
@@ -228,6 +251,30 @@ PRUNE_CLI_SAMPLES = 40
 def fail(msg):
     print(f"chip_smoke FAILED: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+def beside(fn, *args):
+    """``fn(*args)`` started in a thread; its future. The checks against the
+    host's CPU, whose time goes to the CPU, run beside the phase after them,
+    so that the CPU reference costs little wall time of its own. Phases 7
+    and 7b, 17 and 21 set cuDNN's flags, which are the process's: each runs
+    beside a phase (8, 18, 22) that drives CLI subprocesses and runs no
+    convolution here; 12's CPU side sets none and runs beside 13. A
+    ``fail`` in ``fn`` exits through the future's ``result()``."""
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    future = pool.submit(fn, *args)
+    pool.shutdown(wait=False)
+    return future
+
+
+def deterministic(fn):
+    """``fn`` under cuDNN's deterministic algorithms with TF32 off (the
+    float64 checks' flags)."""
+    def run(*args, **kw):
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                         allow_tf32=False):
+            return fn(*args, **kw)
+    return run
 
 
 def card_line():
@@ -315,31 +362,42 @@ def generator_layer_shapes(batch=BATCH):
     return blur, fused
 
 
-def train_phase_launches(log_size):
+def train_phase_launches(log_size, remat=False, student_vector=0):
     """Kernel launches of each training phase at a resolution of 2**log_size.
     k = log_size - 2 is both the generator's number of up-blurs and the
     discriminator's number of ResBlocks (two blurs each); e = 2*log_size - 3
-    is the generator's number of epilogues. PERF.md derives each entry."""
-    k, e = log_size - 2, 2 * log_size - 3
+    is the generator's number of epilogues. ``student_vector`` of the
+    student's k up-blurs take 16-byte lanes. With ``remat`` (the steps'
+    checkpointed blocks) the backward replays each checkpointed forward:
+    D's 2k blurs once per D backward and twice for R1 (its gradient, then
+    the gradient's backward), the student's resolution blocks (k up-blurs,
+    2k epilogues; conv1 stays outside) once in g and twice in g_reg. PERF.md
+    derives each entry."""
+    k, e, sv = log_size - 2, 2 * log_size - 3, student_vector
+    r = int(remat)
     zero = {"blur4": 0, "blur4_backward": 0, "blur4_vector": 0, "fused_noise_bias_lrelu": 0,
             "masked_scale": 0}
-    # blur4_vector: the launches with float4 lanes, forward and backward. The
-    # teacher's and D's widths are multiples of 4; the 11x student's (154,
-    # 77, 39) are not, so its blurs take scalar lanes.
+    # blur4_vector: the launches with 16-byte lanes, forward and backward.
+    # The teacher's and D's widths are multiples of 8; the 11x student's
+    # (154, 77, 39, and 20 and 10 at 1024px) mostly are not, so most of its
+    # blurs take narrower lanes.
     return {
         # student forward without grad; D forward on fake and on real, and back
-        "d": {**zero, "blur4": k + 4 * k, "blur4_backward": 4 * k, "blur4_vector": 8 * k,
-              "fused_noise_bias_lrelu": e},
+        "d": {**zero, "blur4": k + 4 * k + r * 4 * k, "blur4_backward": 4 * k,
+              "blur4_vector": 8 * k + sv + r * 4 * k, "fused_noise_bias_lrelu": e},
         # D forward on real; R1's backward; its backward, which also runs
         # back through the forward (the minibatch stddev is not linear)
-        "d_reg": {**zero, "blur4": 2 * k, "blur4_backward": 6 * k, "blur4_vector": 8 * k},
+        "d_reg": {**zero, "blur4": 2 * k + r * 4 * k, "blur4_backward": 6 * k,
+                  "blur4_vector": 8 * k + r * 4 * k},
         # teacher and student forward, D forward; back through D and student
-        "g": {"blur4": 4 * k, "blur4_backward": 3 * k, "blur4_vector": k + 2 * k + 2 * k,
-              "fused_noise_bias_lrelu": 2 * e, "masked_scale": e},
+        "g": {"blur4": 4 * k + r * 3 * k, "blur4_backward": 3 * k,
+              "blur4_vector": k + 2 * k + 2 * k + 2 * sv + r * (2 * k + sv),
+              "fused_noise_bias_lrelu": 2 * e + r * 2 * k, "masked_scale": e},
         # student forward; the path-length grad; its backward, and back
         # through the forward
-        "g_reg": {**zero, "blur4": k, "blur4_backward": 3 * k, "fused_noise_bias_lrelu": e,
-                  "masked_scale": 3 * e},
+        "g_reg": {**zero, "blur4": k + r * 2 * k, "blur4_backward": 3 * k,
+                  "blur4_vector": 4 * sv + r * 2 * sv,
+                  "fused_noise_bias_lrelu": e + r * 4 * k, "masked_scale": 3 * e},
         "ema": zero,
     }
 
@@ -394,9 +452,10 @@ def student_epilogue_shapes(batch, net_shape=STUDENT_SHAPE):
 
 
 def student_blur_shapes(batch, net_shape=STUDENT_SHAPE):
-    """blur4 input shapes of the student's up-blurs (C = 154, ..., 77, 39)."""
+    """blur4 input shapes of a generator's up-blurs at ``net_shape``'s
+    resolution (the student's: C = 154, ..., 77, 39)."""
     return [(batch, 2 ** r + 1, 2 ** r + 1, net_shape[2 * (r - 2)])
-            for r in range(3, int(np.log2(SIZE)) + 1)]
+            for r in range(3, (len(net_shape) + 2) // 2 + 1)]
 
 
 def misaligned(x):
@@ -405,14 +464,14 @@ def misaligned(x):
     return torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(x.shape)
 
 
-def discriminator_blur_cases():
-    """(input shape, pad) of every blur of the 256px D: each ResBlock blurs
+def discriminator_blur_cases(size=SIZE):
+    """(input shape, pad) of every blur of D at ``size``: each ResBlock blurs
     its input with pad (1,1) for the skip and its conv1 output with (2,2)."""
     from content_aware_gan_compression_torch.models import DiscriminatorConfig
 
-    ch = DiscriminatorConfig(size=SIZE).channels()
-    return [((BATCH, SIZE >> i, SIZE >> i, ch[SIZE >> i]), pad)
-            for i in range(int(np.log2(SIZE)) - 2) for pad in ((2, 2), (1, 1))]
+    ch = DiscriminatorConfig(size=size).channels()
+    return [((BATCH, size >> i, size >> i, ch[size >> i]), pad)
+            for i in range(int(np.log2(size)) - 2) for pad in ((2, 2), (1, 1))]
 
 
 def hold_forward(blur_cases, fused_cases, ms_shapes, rng):
@@ -678,14 +737,15 @@ def drive_train_path(trainer, reals, want_phase, draws0=None):
     return launches, metrics, iter_s, [n for n, _ in phases]
 
 
-def train_window(trainer, reals, mpl, window=range(16, 32)):
+def train_window(trainer, reals, mpl, window=range(16, 32), profile=True):
     """Iterations/s, host ms per iteration and peak memory over ``window``
     (by default 16-31: R1 at 16, path length at 16, 20, 24, 28) after two
-    warm-up iterations; then where its device time goes: one iteration of
-    each kind in it (with R1 and path length, with path length alone, with
-    neither; the first of each) under the profiler, whose host-side
-    processing takes seconds per iteration, weighted by how many of that
-    kind the window holds. Returns (dict, the running mean path length)."""
+    warm-up iterations; then, with ``profile``, where its device time goes:
+    one iteration of each kind in it (with R1 and path length, with path
+    length alone, with neither; the first of each) under the profiler,
+    whose host-side processing takes seconds per iteration, weighted by how
+    many of that kind the window holds. Returns (dict, the running mean
+    path length)."""
     cfg = trainer.cfg
     for it in (1, 2):  # warm-up, no regularizer
         trainer.step(it, reals[it % 4], mpl)
@@ -699,6 +759,9 @@ def train_window(trainer, reals, mpl, window=range(16, 32)):
     out = {"iterations_per_s": len(window) / seconds,
            "ms_per_iteration": seconds * 1e3 / len(window),
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if not profile:
+        out["device_time"] = "not measured: the window is not profiled"
+        return out, mpl
     kinds = {}  # (R1, path length) -> [its first iteration, its count]
     for it in window:
         kinds.setdefault((it % cfg.d_reg_freq == 0, it % cfg.g_reg_freq == 0), [it, 0])[1] += 1
@@ -861,43 +924,29 @@ def eval_phases(g, dev, card, work):
     if dist.shape != (PPL_SAMPLES,) or not np.isfinite(dist).all() or not (dist >= 0).all():
         fail(f"ppl_path distances {dist.shape} not finite or negative")
 
-    # -- 12. eval_cuda_vs_cpu: the first FID batch and 4 PPL pairs, TF32 off ----
+    # -- 12. eval_cuda_vs_cpu: the first FID batch and 4 PPL pairs, TF32 off;
+    # the CPU's side in a thread beside phase 13 (CPU work only) -------------------
     gen = torch.Generator(dev).manual_seed(0)  # replays the stream's first batch
     z = torch.randn(FID_BATCH, g.config.style_dim, generator=gen, device=dev)
     with torch.inference_mode():
         img = g([z], generator=gen)
         on_card = inc(img, normalize_input=False).cpu().numpy()
     inc_cpu = copy.deepcopy(inc).to("cpu")
-    with torch.inference_mode():
-        on_cpu = inc_cpu(img.cpu(), normalize_input=False).numpy()
-    feat_err = float(np.abs(on_card - on_cpu).max() / np.abs(on_cpu).max())
-    replay_err = float(np.abs(on_card - feats[:FID_BATCH]).max())
-    swapped = feats.copy()
-    swapped[:FID_BATCH] = on_cpu
-    swap_fid, _ = fid_quietly(calc_fid, feature_stats(swapped), stats)
-
     g_cpu = copy.deepcopy(g).to("cpu")
     lpips_cpu = copy.deepcopy(lpips).to("cpu")
     crng = torch.Generator().manual_seed(3)
     z = torch.randn(8, g.config.style_dim, generator=crng)
     t = torch.rand(4, generator=crng)
     noise = g_cpu.make_noise(8, crng)
+
+    def on_the_cpu(img, z, t, noise):
+        with torch.inference_mode():
+            features = inc_cpu(img, normalize_input=False).numpy()
+        return features, _ppl_batch(g_cpu, lpips_cpu, z, t, 1e-4, noise=noise).numpy()
+    cpu_side = beside(on_the_cpu, img.cpu(), z, t, noise)
     d_card = _ppl_batch(g, lpips, z.to(dev), t.to(dev), 1e-4,
                         noise=[n.to(dev) for n in noise]).cpu().numpy()
-    d_cpu = _ppl_batch(g_cpu, lpips_cpu, z, t, 1e-4, noise=noise).numpy()
-    ppl_err = float(np.abs(d_card - d_cpu).max() / np.abs(d_cpu).max())
-    detail("eval_cuda_vs_cpu", tf32=False, features_images=FID_BATCH,
-           features_max_rel_err=feat_err, features_tolerance="1e-3 of the CPU's max |feature|",
-           features_vs_stream_max_abs_diff=replay_err,
-           fid_stream_with_cpu_batch_vs_stream=swap_fid,
-           fid_tolerance="below 1e-3 of the FID between two streams",
-           ppl_pairs=4, ppl_card=d_card.tolist(), ppl_cpu=d_cpu.tolist(), ppl_max_rel_err=ppl_err,
-           ppl_tolerance="5e-2 of the CPU's largest distance (eps 1e-4: the pair's images "
-                         "differ by about 1e-4)")
-    if not feat_err <= 1e-3 or not abs(swap_fid) <= 1e-3 * other_fid or not ppl_err <= 5e-2:
-        fail(f"evaluation on the card vs the CPU: features {feat_err}, FID {swap_fid}, "
-             f"PPL {ppl_err}")
-    del g_cpu, lpips_cpu, inc_cpu, img
+    replay_err = float(np.abs(on_card - feats[:FID_BATCH]).max())
 
     # -- 13. eval_cli: the three CLIs on seeded files, and the in-loop FID ------
     # A width-1/8 Inception (pool3 dim 256) in the pytorch-fid schema keeps
@@ -960,6 +1009,26 @@ def eval_phases(g, dev, card, work):
                                                         for r in fid_recs):
         fail(f"train CLI in-loop FID records {fid_recs}, want iterations 3 and 6")
     shutil.rmtree(work)
+
+    # -- 12, its CPU side joined -------------------------------------------------
+    on_cpu, d_cpu = cpu_side.result()
+    feat_err = float(np.abs(on_card - on_cpu).max() / np.abs(on_cpu).max())
+    swapped = feats.copy()
+    swapped[:FID_BATCH] = on_cpu
+    swap_fid, _ = fid_quietly(calc_fid, feature_stats(swapped), stats)
+    ppl_err = float(np.abs(d_card - d_cpu).max() / np.abs(d_cpu).max())
+    detail("eval_cuda_vs_cpu", tf32=False, features_images=FID_BATCH,
+           features_max_rel_err=feat_err, features_tolerance="1e-3 of the CPU's max |feature|",
+           features_vs_stream_max_abs_diff=replay_err,
+           fid_stream_with_cpu_batch_vs_stream=swap_fid,
+           fid_tolerance="below 1e-3 of the FID between two streams",
+           ppl_pairs=4, ppl_card=d_card.tolist(), ppl_cpu=d_cpu.tolist(), ppl_max_rel_err=ppl_err,
+           ppl_tolerance="5e-2 of the CPU's largest distance (eps 1e-4: the pair's images "
+                         "differ by about 1e-4)", beside="eval_cli")
+    if not feat_err <= 1e-3 or not abs(swap_fid) <= 1e-3 * other_fid or not ppl_err <= 5e-2:
+        fail(f"evaluation on the card vs the CPU: features {feat_err}, FID {swap_fid}, "
+             f"PPL {ppl_err}")
+    del g_cpu, lpips_cpu, inc_cpu, img
 
     # -- 14. times: the stream, Inception alone, PPL, peak memory ---------------
     flops, n_convs = inception_conv_flops(inc, dev)
@@ -1202,13 +1271,8 @@ def prune_phases(g, dev, card, work):
            **metrics, card=card, note="seconds: host clock, ending in the scores' copy to the "
            f"host; ASV: {n_batch} feature-map forwards, no backward")
 
-    # -- 17. prune_cuda_vs_cpu: 64px, batch 4, against float64 -----------------
-    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
-                                     allow_tf32=False):
-        small = prune_vs_float64(dev)
-    detail("prune_cuda_vs_cpu", size=64, batch=4, tf32=False, cudnn_deterministic=True,
-           **small, measure="per layer, largest |a - float64| / max|float64| of the scores",
-           tolerance="card <= 2 * cpu + 1e-4")
+    # -- 17. prune_cuda_vs_cpu: 64px, batch 4, against float64; beside phase 18 --
+    prune_check = beside(deterministic(prune_vs_float64), dev)
 
     # -- 18. prune_cli: the prune CLI, then the train CLI on its output --------
     os.makedirs(work, exist_ok=True)
@@ -1269,6 +1333,10 @@ def prune_phases(g, dev, card, work):
                          "as --teacher_ckpt, KD-L1 (no aux files), 2 iterations")
     if cli["retrain"]["iters"] != [0, 1] or not cli["retrain"]["finite"]:
         fail(f"train CLI on the pruned checkpoint: {cli['retrain']}")
+    detail("prune_cuda_vs_cpu", size=64, batch=4, tf32=False, cudnn_deterministic=True,
+           **prune_check.result(), beside="prune_cli",
+           measure="per layer, largest |a - float64| / max|float64| of the scores",
+           tolerance="card <= 2 * cpu + 1e-4")
     shutil.rmtree(work)
     del parser
     return launches
@@ -1283,15 +1351,16 @@ SPARSITY_OPTS = dict(sparsity_eta=1e-5, model_prune_freq=3, num_rmve_channel=588
                      kd_percept_mode="VGG")
 SPARSITY_ITERS = 6
 # projector: get_projected_image's defaults cut from 800 iterations
-PROJECT_ADAM_ITERS = 100
-PROJECT_LBFGS_ITERS = 20
+PROJECT_ADAM_ITERS = 50
+PROJECT_LBFGS_ITERS = 10
 PROJECT_CLI_ITERS = 10
 
 
-def student_lanes(net_shape):
-    """How many of a generator's up-blurs take float4 lanes: those whose
-    width (the up conv's output) is a multiple of 4."""
-    return sum(c % 4 == 0 for c in [s[3] for s in student_blur_shapes(1, net_shape)])
+def student_lanes(net_shape, lanes=4):
+    """How many of a generator's up-blurs take 16-byte lanes: those whose
+    width (the up conv's output) is a multiple of ``lanes`` (4 float32, 8
+    bfloat16)."""
+    return sum(c % lanes == 0 for c in [s[3] for s in student_blur_shapes(1, net_shape)])
 
 
 def sparse_phase_launches(log_size, net_shape):
@@ -1299,11 +1368,7 @@ def sparse_phase_launches(log_size, net_shape):
     take float4 lanes where its widths allow. The student's blur passes are 1
     in d (forward), 2 in g (forward, backward) and 4 in g_reg (forward, the
     path-length grad, its backward and back through the forward)."""
-    want = train_phase_launches(log_size)
-    nv = student_lanes(net_shape)
-    for phase, passes in (("d", 1), ("g", 2), ("g_reg", 4)):
-        want[phase]["blur4_vector"] += passes * nv
-    return want
+    return train_phase_launches(log_size, student_vector=student_lanes(net_shape))
 
 
 def sparsity_config(size, batch, ckpt, cache, **kw):
@@ -1480,10 +1545,12 @@ def sparsity_phases(g, dev, card, work):
             torch.cuda.synchronize()
             rate["prune_event_s"] = time.perf_counter() - t0
             rate["net_shape_after"] = list(shape_after)
-        mpl = torch.zeros((), device=dev)
-        for label, tf32 in (("tf32_off", False), ("pytorch_defaults", True)):
-            torch.backends.cudnn.allow_tf32 = tf32
-            rate[f"{side}_{label}"], mpl = train_window(trainer, reals, mpl, window)
+        # under PyTorch's defaults only (the TF32-off windows made room for
+        # path_1024; PERF.md keeps their last numbers)
+        torch.backends.cudnn.allow_tf32 = True
+        rate[f"{side}_pytorch_defaults"], _ = train_window(
+            trainer, reals, torch.zeros((), device=dev), window,
+            profile=side == "after_prune")
     torch.backends.cudnn.allow_tf32 = False
     detail("sparsity_rate", size=SIZE, batch=BATCH, path_batch=PATH_BATCH, card=card,
            window="iterations 16-23: 8 D and sparse G steps, 1 R1, 2 path length; "
@@ -1494,14 +1561,9 @@ def sparsity_phases(g, dev, card, work):
                 "pytorch_defaults: cuDNN TF32 on, matmul TF32 off")
     del trainer
 
-    # -- 21. sparsity_cuda_vs_cpu: one sparse G step at 64px against float64 --------
-    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
-                                     allow_tf32=False):
-        small = sparsity_vs_float64(work, dev)
-    detail("sparsity_cuda_vs_cpu", size=64, batch=4, tf32=False, lr=0.0,
-           cudnn_deterministic=True, **small,
-           measure="largest |a-b| / max|float64| over G's parameter gradients; losses relative",
-           tolerance="card <= 2 * cpu + 1e-4")
+    # -- 21. sparsity_cuda_vs_cpu: one sparse G step at 64px against float64;
+    # beside phase 22 ------------------------------------------------------------
+    sparse_check = beside(deterministic(sparsity_vs_float64), work, dev)
 
     # -- 22. sparsity_cli: train_sparsity over 4 iterations, prune after 2 ---------
     vgg_file, lins_file = write_aux_files(work, lpips)
@@ -1536,6 +1598,10 @@ def sparsity_phases(g, dev, card, work):
             or sum(full_shape) - sum(cli_shape) < SPARSITY_OPTS["num_rmve_channel"] + 1
             or sorted(trees) != ["d", "d_optim", "g", "g_ema", "g_optim"] or cli["warnings"]):
         fail(f"train_sparsity CLI: {cli}")
+    detail("sparsity_cuda_vs_cpu", size=64, batch=4, tf32=False, lr=0.0,
+           cudnn_deterministic=True, **sparse_check.result(), beside="sparsity_cli",
+           measure="largest |a-b| / max|float64| over G's parameter gradients; losses relative",
+           tolerance="card <= 2 * cpu + 1e-4")
     shutil.rmtree(work)
 
     # -- 22, continued: the kernels against their plain versions at the pruned
@@ -1676,7 +1742,7 @@ def projector_phases(g, dev, card, work):
 
 
 def train_vs_float64(work, dev, objectives=("kd_l1", "full_kd"), compute_dtype="float32",
-                     slack=1e-4):
+                     slack=1e-4, f64_runs=None):
     """One iteration at 64px, batch 4, TF32 off, on the card and on the CPU,
     each held against the CPU in float64, per phase; fails on a phase where
     the card is further from float64 than the bound. Returns the distances.
@@ -1703,14 +1769,22 @@ def train_vs_float64(work, dev, objectives=("kd_l1", "full_kd"), compute_dtype="
     last noise weight (a scalar, 0.0094 in float64, the sum of terms of both
     signs over a [4,64,64,C] map) then moves from run to run by up to 6e-3
     of its value, on the parent commit's code too; deterministic algorithms
-    give the same result in every run."""
+    give the same result in every run.
+
+    ``f64_runs``, a dict the caller keeps between calls, holds each
+    objective's float64 run (its draws, parser seed, class map, losses and
+    gradients); a later call whose float64 draws and parser are the same
+    takes the run from there instead of computing it again: phase 7b's
+    float64 iteration is phase 7's full_kd one."""
     from content_aware_gan_compression_torch.train import Trainer
+
+    f64_runs = {} if f64_runs is None else f64_runs
 
     s_small, t_small = write_train_checkpoints(work, 64)
     real64 = torch.from_numpy(np.random.RandomState(1).randint(
         0, 256, (4, 64, 64, 3), dtype=np.uint8)).float() / 127.5 - 1.0
     trained = {"d": "d", "d_reg": "d", "g": "g", "g_reg": "g"}
-    small_checks = {}
+    small_checks, kd_l1_results = {}, None
     for objective in objectives:
         # lr 0: Adam's first step is about lr * sign(g), so a weight whose
         # gradient is near 0 would move apart on the two devices and every
@@ -1720,20 +1794,25 @@ def train_vs_float64(work, dev, objectives=("kd_l1", "full_kd"), compute_dtype="
         cfg = dataclasses.replace(cfg64, compute_dtype=compute_dtype)
         aux = {"lpips_params": seeded_lpips(0.25).state_dict()} if objective == "full_kd" else {}
         runs = {"cpu": Trainer(cfg, device="cpu", **aux),
-                "card": Trainer(cfg, device=dev, **aux),
-                "f64": Trainer(cfg64, device="cpu", **aux)}
-        for module in (runs["f64"].g, runs["f64"].d, runs["f64"].teacher, runs["f64"].lpips):
-            if module is not None:
-                module.double()
+                "card": Trainer(cfg, device=dev, **aux)}
         draws = runs["cpu"].draw(0)
         f64_draws = to_float64(draws)
-        agree = None
+        kept = f64_runs.get(objective)
+        if kept is not None and not same_tensors(kept["draws"], f64_draws):
+            kept = None
+        agree = parser64_seed = None
         if objective == "full_kd":
             from content_aware_gan_compression_torch.models import make_parse_fn
             from content_aware_gan_compression_torch.pruning import batch_img_parsing
 
             maps = {}
             for key in ("cpu", "f64", "card"):  # the parser is picked on the CPU's images
+                if key == "f64" and kept is not None and kept["parser_seed"] == parser64_seed:
+                    maps[key] = kept["map"]
+                    continue
+                if key == "f64":
+                    kept = None
+                    runs["f64"] = float64_trainer(Trainer, cfg64, aux)
                 tr, g_draw = runs[key], to_device(
                     f64_draws["g"] if key == "f64" else draws["g"], runs[key].device)
                 with torch.no_grad():
@@ -1746,9 +1825,16 @@ def train_vs_float64(work, dev, objectives=("kd_l1", "full_kd"), compute_dtype="
                 maps[key] = batch_img_parsing(img, make_parse_fn(net, "NHWC", tr.dtype),
                                               "NHWC").cpu()
             agree = (maps["card"] == maps["f64"]).float().mean().item()
+        if kept is None and "f64" not in runs:
+            runs["f64"] = float64_trainer(Trainer, cfg64, aux)
+        if objective == "full_kd":
             for tr in runs.values():
                 tr.parser = FixedParse(maps["f64"]).to(tr.device)
-        results = {}
+        results = {} if kept is None else {"f64": kept["results"]}
+        # D's two phases and the path length read nothing of the objective:
+        # with lr 0 and the same draws full_kd's are kd_l1's to the last bit,
+        # so after kd_l1 full_kd runs its G phase alone and takes the others
+        g_only = objective == "full_kd" and kd_l1_results is not None
         for key, tr in runs.items():
             dtype = torch.float64 if key == "f64" else torch.float32
             store = results[key] = {}
@@ -1758,11 +1844,23 @@ def train_vs_float64(work, dev, objectives=("kd_l1", "full_kd"), compute_dtype="
                     store[name] = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
                                    .detach().cpu().double()
                                    for n, p in getattr(tr, trained[name]).named_parameters()}
+            step_draws = to_device(f64_draws if key == "f64" else draws, tr.device)
+            if g_only:
+                metrics = {k: v.item() for k, v in tr.g_phase(step_draws["g"]).items()}
+                hook("g")
+                store.update({ph: kd_l1_results[key][ph] for ph in trained if ph != "g"})
+                store["losses"] = {**{k: v for k, v in kd_l1_results[key]["losses"].items()
+                                      if k not in metrics}, **metrics}
+                continue
             metrics, _ = tr.step(0, real64.to(tr.device, dtype),
                                  torch.zeros((), device=tr.device, dtype=dtype),
-                                 draws=to_device(f64_draws if key == "f64" else draws, tr.device),
-                                 phase_hook=hook)
+                                 draws=step_draws, phase_hook=hook)
             store["losses"] = {k: v.item() for k, v in metrics.items()}
+        if objective == "kd_l1":
+            kd_l1_results = results
+        f64_runs[objective] = {"draws": f64_draws, "parser_seed": parser64_seed,
+                               "map": maps["f64"] if objective == "full_kd" else None,
+                               "results": results["f64"]}
 
         def distance(key, results=results):
             losses = max(abs(v - results["f64"]["losses"][k])
@@ -1781,7 +1879,10 @@ def train_vs_float64(work, dev, objectives=("kd_l1", "full_kd"), compute_dtype="
 
         cpu_err, card_err = distance("cpu"), distance("card")
         small_checks[objective] = {"card_vs_float64": card_err, "cpu_vs_float64": cpu_err,
-                                   "losses_float64": results["f64"]["losses"]}
+                                   "losses_float64": results["f64"]["losses"],
+                                   "float64_run": "computed" if kept is None else
+                                   "the same run as an earlier call's, kept",
+                                   "phases_run": ["g"] if g_only else list(trained)}
         if agree is not None:
             small_checks[objective].update(
                 parse_agreement_card_vs_float64=agree, parser_seed=parser64_seed,
@@ -1795,6 +1896,41 @@ def train_vs_float64(work, dev, objectives=("kd_l1", "full_kd"), compute_dtype="
             fail("64px full_kd: the LPIPS term is 0")
         del runs, results
     return small_checks
+
+
+def float64_phases(work, dev):
+    """Phases 7 and 7b: train_vs_float64 for both objectives in float32,
+    then for full_kd in bfloat16 on phase 7's float64 run. Returns (7's
+    distances, 7b's, 7b's seconds)."""
+    f64_runs = {}
+    small_checks = train_vs_float64(work, dev, f64_runs=f64_runs)
+    t0 = time.time()
+    bf16_checks = train_vs_float64(work, dev, ("full_kd",), "bfloat16", 1e-3, f64_runs)
+    return small_checks, bf16_checks, round(time.time() - t0, 1)
+
+
+def float64_trainer(Trainer, cfg64, aux):
+    """The float64 reference of train_vs_float64: a Trainer on the CPU with
+    every network in float64."""
+    tr = Trainer(cfg64, device="cpu", **aux)
+    for module in (tr.g, tr.d, tr.teacher, tr.lpips):
+        if module is not None:
+            module.double()
+    return tr
+
+
+def same_tensors(a, b):
+    """Whether two nests of dicts, lists and tensors hold equal tensors."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            same_tensors(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return isinstance(b, (list, tuple)) and len(a) == len(b) and all(
+            same_tensors(x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(a, b))
+    return a == b
 
 
 # -- bfloat16 --------------------------------------------------------------------
@@ -2056,7 +2192,7 @@ def bf16_train_phases(student, teacher, parser, reals, want_phase, dev):
             for need in ("d_reg", "g", "g_reg"):
                 if not any(n == need for n, _ in phases):
                     fail(f"bf16 phase {need} did not run")
-        rates[f"opt_state_{sd}"], _ = train_window(tr, reals, mpl)
+        rates[f"opt_state_{sd}"], _ = train_window(tr, reals, mpl, profile=sd == "float32")
         nu = next(iter(tr.g_opt.state.values()))["exp_avg_sq"]
         rates[f"opt_state_{sd}"]["nu_dtype"] = str(nu.dtype)
         del tr
@@ -2877,20 +3013,463 @@ def down_vs_plain(dev):
     return {"blur4": launched["float32"]["blur4"] + launched["bfloat16"]["blur4"]}
 
 
+# -- path_1024: the 1024px operating point, with remat -----------------------------
+
+SIZE_1024 = 1024  # the reference's 1024px FFHQ generator; bench.py's batch 16, path batch 8
+FID_1024_BATCHES = (32, 64)  # fid_batch sizes of the 1024px feature stream
+FID_1024_N_BATCH = 2  # batches streamed at each
+
+
+def net_shapes_1024():
+    """(the full-width 1024px generator's net_shape, the 11x student's)."""
+    from content_aware_gan_compression_torch.models import default_net_shape
+
+    full = tuple(default_net_shape(SIZE_1024))
+    return full, tuple(c - int(c * 0.7) for c in full)
+
+
+def hold_epilogue_2_31(rng):
+    """The epilogue at FID's [64, 1024, 1024, 32] (batch 64, the full-width
+    generator's last epilogue): 2^31 elements, past 32-bit indexing. Held
+    against the plain version in batch chunks of 8 to 1e-6 of its largest
+    value, and timed against its bytes bound. Returns the details."""
+    from content_aware_gan_compression_torch.bench_blur4 import bound, time_ms
+    from content_aware_gan_compression_torch.ops.cuda import (
+        counts, fused_noise_bias_lrelu, fused_noise_bias_lrelu_plain, reset_counts)
+
+    dev = rng.device
+    shape = (64, *student_epilogue_shapes(1, net_shapes_1024()[0])[-1][1:])
+    x = torch.randn(shape, generator=rng, device=dev)
+    noise = torch.randn((*shape[:3], 1), generator=rng, device=dev)
+    bias = 0.5 * torch.randn(shape[3], generator=rng, device=dev)
+    nw = torch.tensor([0.7], device=dev)
+    reset_counts()
+    got = fused_noise_bias_lrelu(x, noise, bias, nw)
+    launched = counts()["fused_noise_bias_lrelu"]
+    err, scale, negatives = 0.0, 0.0, 0
+    for i in range(0, shape[0], 8):
+        want = fused_noise_bias_lrelu_plain(x[i:i + 8], noise[i:i + 8], bias, nw)
+        err = max(err, (got[i:i + 8] - want).abs().max().item())
+        scale = max(scale, want.abs().max().item())
+        negatives += int((want < 0).sum().item())
+        del want
+    if launched != 1 or not err <= 1e-6 * scale:
+        fail(f"epilogue at {shape} ({x.numel()} elements): {launched} launches, max_abs_err "
+             f"{err} > 1e-6 * {scale}")
+    del got
+    t_bound, t_by = bound(4 * (2 * x.numel() + noise.numel() + shape[3]),
+                          3 * x.numel() + negatives + noise.numel())
+    ms = time_ms(lambda: fused_noise_bias_lrelu(x, noise, bias, nw), iters=5)
+    del x, noise
+    torch.cuda.empty_cache()
+    return {"shape": list(shape), "elements": int(np.prod(shape)), "max_abs_err": err,
+            "ms": ms, "bound_ms": t_bound, "bound_by": t_by, "bound_share": t_bound / ms,
+            "plain_ms": "not measured: the plain version's temporaries at 2^31 elements"}
+
+
+def times_1024(rng, dtype):
+    """The three kernels in ``dtype`` at the 1024px path's largest shapes:
+    ms against the bytes bound, the plain version and one PyTorch library
+    call (F.conv2d depthwise on the channels-last view for blur4,
+    aten.leaky_relu_backward for masked_scale; none for the epilogue)."""
+    from content_aware_gan_compression_torch.bench_blur4 import blur4_bound, bound, time_ms
+    from content_aware_gan_compression_torch.ops import make_kernel
+    from content_aware_gan_compression_torch.ops.cuda import (
+        blur4, blur4_plain, correlation_taps, fused_noise_bias_lrelu,
+        fused_noise_bias_lrelu_plain, lane_width, masked_scale, masked_scale_plain)
+
+    dev, size = rng.device, torch.tensor([], dtype=dtype).element_size()
+    k4 = make_kernel([1, 3, 3, 1])
+    full, student = net_shapes_1024()
+    s_blurs, s_epilogues = student_blur_shapes(BATCH, student), student_epilogue_shapes(BATCH,
+                                                                                          student)
+    out = {"blur4": [], "fused_noise_bias_lrelu": [], "masked_scale": []}
+    for shape, pad, gain, role in [
+            (student_blur_shapes(BATCH, full)[-1], (1, 1), 4.0, "teacher's last up-blur"),
+            (discriminator_blur_cases(SIZE_1024)[0][0], (2, 2), 1.0, "D's first conv blur"),
+            (s_blurs[-2], (1, 1), 4.0, "11x student's next-to-last up-blur"),
+            (s_blurs[-1], (1, 1), 4.0, "11x student's last up-blur")]:
+        x = torch.randn(shape, generator=rng, device=dev).to(dtype)
+        c, taps = shape[3], correlation_taps(k4, gain)
+        w_dw = (k4 * gain).flip(0, 1).reshape(1, 1, 4, 4).repeat(c, 1, 1, 1).to(dev, dtype)
+        x_nchw = x.permute(0, 3, 1, 2)
+        t_bound, t_by = blur4_bound(shape, pad, itemsize=size)
+        out["blur4"].append({
+            "shape": list(shape), "pad": list(pad), "role": role,
+            "lanes": lane_width(c, x.data_ptr(), 0, itemsize=size),
+            "ms": time_ms(lambda: blur4(x, k4, pad, gain)),
+            "plain_ms": time_ms(lambda: blur4_plain(x, taps, pad), iters=5),
+            "bound_ms": t_bound, "bound_by": t_by,
+            "library_ms": time_ms(lambda: torch.nn.functional.conv2d(
+                x_nchw, w_dw, padding=pad[0], groups=c), iters=5)})
+        del x, x_nchw
+    for shape, role in [(student_epilogue_shapes(BATCH, full)[-1], "teacher's last epilogue"),
+                        (s_epilogues[-1], "11x student's last epilogue")]:
+        x = torch.randn(shape, generator=rng, device=dev).to(dtype)
+        noise = torch.randn((*shape[:3], 1), generator=rng, device=dev).to(dtype)
+        bias = (0.5 * torch.randn(shape[3], generator=rng, device=dev)).to(dtype)
+        nw = torch.tensor([0.7], device=dev).to(dtype)
+        negatives = int((fused_noise_bias_lrelu_plain(x, noise, bias, nw) < 0).sum().item())
+        f_bound, f_by = bound(size * (2 * x.numel() + noise.numel() + shape[3]),
+                              3 * x.numel() + negatives + noise.numel())
+        out["fused_noise_bias_lrelu"].append({
+            "shape": list(shape), "role": role,
+            "ms": time_ms(lambda: fused_noise_bias_lrelu(x, noise, bias, nw)),
+            "plain_ms": time_ms(lambda: fused_noise_bias_lrelu_plain(x, noise, bias, nw),
+                                iters=5),
+            "bound_ms": f_bound, "bound_by": f_by, "library_ms": None})
+        del x, noise
+    for shape in (s_epilogues[-1], student_epilogue_shapes(PATH_BATCH, student)[-1]):
+        g_in = torch.randn(shape, generator=rng, device=dev).to(dtype)
+        o = torch.randn(shape, generator=rng, device=dev).to(dtype)
+        negatives = int((o < 0).sum().item())
+        m_bound, m_by = bound(3 * size * o.numel(), 2 * o.numel() + negatives)
+        out["masked_scale"].append({
+            "shape": list(shape), "role": "11x student's last epilogue, backward",
+            "ms": time_ms(lambda: masked_scale(g_in, o)),
+            "plain_ms": time_ms(lambda: masked_scale_plain(g_in, o), iters=5),
+            "bound_ms": m_bound, "bound_by": m_by,
+            "library_ms": time_ms(lambda: torch.ops.aten.leaky_relu_backward(g_in, o, 0.2,
+                                                                              True))})
+        del g_in, o
+    for rows in out.values():
+        for t in rows:
+            t["bound_share"] = t["bound_ms"] / t["ms"]
+    torch.cuda.empty_cache()
+    return out
+
+
+def kernels_1024_vs_plain(rng, card):
+    """Each kernel against its plain version at every shape the 1024px
+    retraining path gives it, at batch 16 and the path batch 8, forward and
+    backward, float32 and bfloat16, with phase 2's, 5's and 5b's bounds (the
+    teacher's up-blurs and epilogues forward only: it runs without
+    gradients); the epilogue at FID's [64, 1024, 1024, 32]; and the times at
+    the largest shapes. Returns the details."""
+    full, student = net_shapes_1024()
+    d_cases = [(shape, pad, 1.0, False) for shape, pad in discriminator_blur_cases(SIZE_1024)]
+    student_blurs = student_blur_shapes(BATCH, student) + student_blur_shapes(PATH_BATCH, student)
+    blur_cases = [(s, (1, 1), 4.0, False) for s in student_blur_shapes(BATCH, full)
+                  + student_blurs] + d_cases
+    student_epilogues = (student_epilogue_shapes(BATCH, student)
+                         + student_epilogue_shapes(PATH_BATCH, student))
+    fused_cases = [(s, s[0]) for s in student_epilogue_shapes(BATCH, full) + student_epilogues]
+    bw_blur = [(s, (1, 1), 4.0, False) for s in student_blurs] + d_cases
+    bw_epilogue = [(s, s[0], False) for s in student_epilogues]
+    t0 = time.time()
+    blur_err, fused_err, ms_err = hold_forward(blur_cases, fused_cases, student_epilogues, rng)
+    bw_blur_err, bw_fused_err = hold_backward(bw_blur, bw_epilogue, rng)
+    torch.cuda.empty_cache()
+    bf16_err, bf16_bw = hold_bf16(blur_cases, fused_cases, student_epilogues, bw_blur,
+                                  bw_epilogue, rng)
+    torch.cuda.empty_cache()
+    held_s = time.time() - t0
+    fid_epilogue = hold_epilogue_2_31(rng)
+    times = {"float32": times_1024(rng, torch.float32),
+             "bfloat16": times_1024(rng, torch.bfloat16)}
+    out = {"cases": {"blur4": len(blur_cases), "epilogue": len(fused_cases),
+                     "masked_scale": len(student_epilogues), "blur4_backward": len(bw_blur),
+                     "epilogue_backward": len(bw_epilogue)},
+           "float32": {"max_abs_err": {"blur4": blur_err, "fused_noise_bias_lrelu": fused_err,
+                                       "masked_scale": ms_err},
+                       "max_rel_err_backward": {"blur4": bw_blur_err,
+                                                "fused_noise_bias_lrelu": bw_fused_err}},
+           "bfloat16": {"max_abs_err": bf16_err, "max_rel_err_backward": bf16_bw},
+           "epilogue_2_31": fid_epilogue, "times": times}
+    detail("kernels_1024_vs_plain", size=SIZE_1024, student=list(student), seconds_held=round(
+        held_s, 1), card=card, **out,
+        tolerance="float32: blur4 1e-5 * max|x|, epilogue and masked_scale 1e-6 of the plain "
+                  "version's largest value, backward and double backward 1e-5; bfloat16: "
+                  "forward bit for bit, backward 2^-7")
+    return out
+
+
+def train_1024(dev, card, work):
+    """bf16 full_kd retraining at 1024px (bench.py's configuration): the 11x
+    student, the full-width teacher and D, batch 16, path batch 8, seeded
+    full-width LPIPS-VGG16 and BiSeNet; iterations 0-4 (R1 at 0, path
+    length at 0 and 4) with ``--remat``, each phase's launches against
+    ``train_phase_launches(10, remat=True)`` and all of them bf16, finite
+    losses, peak memory; the same without remat (it fits the card's 80 GB
+    too), its launches against the plain form; then,
+    beside the remat trainer's resident state, the extra memory of one
+    feature batch of the in-loop FID (g_ema and a full-width Inception) at
+    fid_batch 32. Returns (the remat run's launches, the details)."""
+    from content_aware_gan_compression_torch.evaluation.fid import _draw_features
+    from content_aware_gan_compression_torch.models import InceptionV3
+    from content_aware_gan_compression_torch.ops.cuda import reset_counts
+    from content_aware_gan_compression_torch.train import Trainer
+    from content_aware_gan_compression_torch.utils import load_generator
+
+    _, student_shape = net_shapes_1024()
+    student, teacher = write_train_checkpoints(work, SIZE_1024)
+    reals = np.random.RandomState(10).randint(0, 256, (2, BATCH, SIZE_1024, SIZE_1024, 3),
+                                              dtype=np.uint8)
+    torch.backends.cudnn.allow_tf32 = True
+    t_net = load_generator(teacher, SIZE_1024, device=dev).eval()
+    with torch.no_grad():
+        pick_gen = torch.Generator(dev).manual_seed(7)
+        t_img = t_net([torch.randn(BATCH, 512, generator=pick_gen, device=dev)],
+                      noise=t_net.make_noise(BATCH, pick_gen), output_format="NHWC")
+        parser, parser_seed, pick_share = pick_parser(t_img)
+    del t_img, t_net
+    out, remat_launches = {}, None
+    for remat in (True, False):
+        cfg = train_config(SIZE_1024, BATCH, student, teacher, "full_kd",
+                           compute_dtype="bfloat16", remat=remat)
+        tr = Trainer(cfg, device=dev, lpips_params=seeded_lpips(), parse_params=parser)
+        if tr.g.config.net_shape != student_shape:
+            fail(f"1024px student net_shape {tr.g.config.net_shape}, want {student_shape}")
+        want_phase = train_phase_launches(int(np.log2(SIZE_1024)), remat=remat,
+                                          student_vector=student_lanes(student_shape, 8))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mpl = torch.zeros((), device=dev)
+        phases, metrics, iter_s, phase_peak = [], [], [], {}
+        count = phase_counter(phases)
+
+        def hook(name):
+            count(name)
+            phase_peak[name] = max(phase_peak.get(name, 0.0),
+                                   torch.cuda.max_memory_allocated() / 1e9)
+            torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        for it in range(5):
+            t0 = time.time()
+            m, mpl = tr.step(it, reals[it % 2], mpl, phase_hook=hook)
+            torch.cuda.synchronize()
+            iter_s.append(round(time.time() - t0, 3))
+            metrics.append({k: v.item() for k, v in m.items()})
+        peak = max(phase_peak.values())
+        launches = {}
+        for name, c in phases:
+            want = dict(want_phase[name])
+            got = {k: c[k] for k in want}
+            got_bf16 = {k: c[f"{k}_bf16"] for k in want}
+            if got != want or got_bf16 != want:
+                fail(f"1024px bf16 train phase {name} (remat {remat}) launched {got} "
+                     f"({got_bf16} in bf16), want {want}, all bf16")
+            for k, v in c.items():
+                launches[k] = launches.get(k, 0) + v
+        if not all(np.isfinite(v) for m in metrics for v in m.values()):
+            fail(f"1024px bf16 training (remat {remat}): a loss is not finite: {metrics}")
+        if not all(m["kd_lpips_loss"] > 0 and m["kd_l1_loss"] > 0 for m in metrics):
+            fail(f"1024px full_kd (remat {remat}): a KD term is not > 0: {metrics}")
+        run = {"launches": launches, "per_phase_want": want_phase, "metrics": metrics,
+               "iteration_seconds": iter_s, "peak_memory_gb": peak,
+               "peak_memory_gb_per_phase": phase_peak, "phases": [n for n, _ in phases]}
+        if remat:
+            remat_launches = launches
+            # the in-loop FID beside the resident trainer: g_ema (the student,
+            # float32) and a full-width Inception at fid_batch 32
+            inc = InceptionV3(device=dev, generator=torch.Generator().manual_seed(INCEPTION_SEED))
+            inc = inc.eval()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            _draw_features(tr.g_ema, inc, 32, torch.Generator(dev).manual_seed(0), 1.0, None)
+            torch.cuda.synchronize()
+            run["in_loop_fid_batch_32"] = {
+                "resident_gb": base / 1e9,
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "above_resident_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+                "training_peak_gb": peak, "card_gb": torch.cuda.get_device_properties(
+                    dev).total_memory / 1e9}
+            del inc
+        out["remat" if remat else "no_remat"] = run
+        del tr
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = False
+    # the same draws and weights: the same losses (not held: cuDNN's default
+    # algorithms may sum in another order from run to run)
+    out["losses_remat_vs_no_remat_max_rel_diff"] = max(
+        abs(a[k] - b[k]) / max(abs(b[k]), 1e-6)
+        for a, b in zip(out["remat"]["metrics"], out["no_remat"]["metrics"]) for k in b)
+    detail("train_1024", size=SIZE_1024, batch=BATCH, path_batch=PATH_BATCH,
+           compute_dtype="bfloat16", objective="full_kd", student=list(student_shape),
+           parser=f"BiSeNet, full width, seed {parser_seed} (mask keeps {pick_share:.4f} of "
+                  f"the picking batch)",
+           lpips="LPIPS-VGG16, full width, seed 5", card=card, **out,
+           note="PyTorch's defaults (cuDNN TF32 on); iterations 0-4, R1 at 0, path length "
+                "at 0 and 4; peak memory over the 5 iterations, and each phase's; the "
+                "losses of the two runs compared, not held (cuDNN's default algorithms)")
+    return remat_launches, out
+
+
+def remat_vs_plain_64(dev, work):
+    """Iteration 0 of the KD-L1 Trainer at 64px, batch 4, float32, TF32 off,
+    cuDNN's deterministic algorithms, lr 0, with remat and without, on the
+    same draws: each phase's gradient, tensor by tensor, within 1e-5 of its
+    largest value (expected bit for bit: the replayed blocks run the same
+    kernels on the same inputs). Returns the details."""
+    from content_aware_gan_compression_torch.ops.cuda import counts, reset_counts
+    from content_aware_gan_compression_torch.train import Trainer
+
+    student, teacher = write_train_checkpoints(work, 64)
+    real = np.random.RandomState(11).randint(0, 256, (4, 64, 64, 3), dtype=np.uint8)
+    grads, launches, draws = {}, {}, None
+    for remat in (False, True):
+        tr = Trainer(train_config(64, 4, student, teacher, "kd_l1", init_lr=0.0, remat=remat),
+                     device=dev)
+        if draws is None:
+            draws = tr.draw(0)
+        got = {}
+
+        def hook(name, tr=tr, got=got):
+            if name in ("d", "d_reg", "g", "g_reg"):
+                net = tr.d if name.startswith("d") else tr.g
+                got[name] = {n: p.grad.clone() for n, p in net.named_parameters()
+                             if p.grad is not None}
+        reset_counts()
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                         allow_tf32=False):
+            tr.step(0, real, torch.zeros((), device=dev), draws=draws, phase_hook=hook)
+        torch.cuda.synchronize()
+        grads[remat], launches[remat] = got, counts()
+        del tr
+    worst, bit_equal = {}, True
+    for phase, ref in grads[False].items():
+        if set(grads[True][phase]) != set(ref):
+            fail(f"remat_vs_plain_64: phase {phase} gave gradients to other parameters")
+        errs = [max_rel_err(grads[True][phase][n], t) for n, t in ref.items()]
+        bit_equal &= all(torch.equal(grads[True][phase][n], t) for n, t in ref.items())
+        worst[phase] = max(errs)
+    out = {"max_rel_err_per_phase": worst, "bit_for_bit": bit_equal,
+           "launches": {"no_remat": launches[False], "remat": launches[True]}}
+    detail("remat_vs_plain_64", size=64, batch=4, dtype="float32", tf32=False, lr=0.0,
+           cudnn_deterministic=True, **out,
+           tolerance="each gradient tensor within 1e-5 of its largest value")
+    if not all(v <= 1e-5 for v in worst.values()):
+        fail(f"remat_vs_plain_64: gradients with remat differ from without: {worst}")
+    if not launches[True]["blur4"] > launches[False]["blur4"]:
+        fail(f"remat_vs_plain_64: remat replayed no blur: {launches}")
+    return out
+
+
+def generate_fid_1024(dev, card, work):
+    """Generate and FID at 1024px on the full-width generator (seed 0):
+    ``generate --size 1024`` on a seeded .npz writes its grid; a feature
+    stream of FID_1024_N_BATCH batches at each of FID_1024_BATCHES through
+    a full-width seeded Inception (at 64 the generator's last activation,
+    [64, 1024, 1024, 32], has 2^31 elements), 8 blur4 (float4) and 17
+    epilogue launches per batch, finite features; Inception's pool3
+    features of a batch of 2 of the card's images on the card against the
+    CPU's to 1e-3 of the largest, as eval_cuda_vs_cpu holds them, TF32 off.
+    Returns the launches per batch size."""
+    from content_aware_gan_compression_torch.evaluation import extract_feature_from_samples
+    from content_aware_gan_compression_torch.models import (
+        Generator, GeneratorConfig, InceptionV3)
+    from content_aware_gan_compression_torch.ops.cuda import counts, reset_counts
+    from content_aware_gan_compression_torch.utils import save_checkpoint
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = GeneratorConfig(size=SIZE_1024)
+    g = Generator(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    randomize_epilogues(g, 1)
+    ckpt = os.path.join(work, "g1024_seed0.npz")
+    save_checkpoint(ckpt, {"g_ema": g.state_dict()}, metadata={"size": SIZE_1024, "seed": 0})
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", "content_aware_gan_compression_torch.generate",
+                           "--ckpt", ckpt, "--size", str(SIZE_1024), "--out_dir",
+                           os.path.join(work, "sample1024")],
+                          cwd=REPO, capture_output=True, text=True, timeout=600)
+    cli_s = time.time() - t0
+    png = os.path.join(work, "sample1024", "000000.png")
+    if proc.returncode != 0 or not os.path.exists(png):
+        fail(f"generate --size 1024 rc {proc.returncode}: {proc.stderr[-3000:]}")
+    with open(png, "rb") as f:
+        head = f.read(24)
+    side = struct.unpack(">II", head[16:24])
+    if head[:8] != b"\x89PNG\r\n\x1a\n" or side != (2 + 4 * (SIZE_1024 + 2),) * 2:
+        fail(f"generate --size 1024 grid {side}")
+
+    g_card = copy.deepcopy(g).to(dev).eval()
+    inc = InceptionV3(device=dev, generator=torch.Generator().manual_seed(INCEPTION_SEED)).eval()
+    stream = {}
+    for batch in FID_1024_BATCHES:
+        reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        feats = extract_feature_from_samples(g_card, inc, batch_size=batch,
+                                             n_sample=batch * FID_1024_N_BATCH,
+                                             generator=torch.Generator(dev).manual_seed(batch))
+        seconds = time.perf_counter() - t0
+        c = counts()
+        k = int(np.log2(SIZE_1024)) - 2  # up-blurs per batch; 2k + 1 epilogues
+        want = {"blur4": k * FID_1024_N_BATCH, "blur4_vector": k * FID_1024_N_BATCH,
+                "fused_noise_bias_lrelu": (2 * k + 1) * FID_1024_N_BATCH, "masked_scale": 0,
+                "blur4_backward": 0}
+        got = {k: c[k] for k in want}
+        stream[f"fid_batch_{batch}"] = {
+            "launches": got, "samples": feats.shape[0], "seconds": seconds,
+            "samples_per_s": feats.shape[0] / seconds,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "last_activation_elements": batch * SIZE_1024 * SIZE_1024 * cfg.net_shape[-1],
+            "finite": bool(np.isfinite(feats).all())}
+        if got != want or feats.shape != (batch * FID_1024_N_BATCH, 2048) \
+                or not np.isfinite(feats).all():
+            fail(f"1024px FID stream at batch {batch}: launches {got} (want {want}), features "
+                 f"{feats.shape}")
+    # card against the CPU, as eval_cuda_vs_cpu: Inception on a batch of 2 of
+    # the card's 1024px images
+    gen = torch.Generator(dev).manual_seed(4)
+    z = torch.randn(2, cfg.style_dim, generator=gen, device=dev)
+    inc_cpu = copy.deepcopy(inc).to("cpu")
+    with torch.inference_mode():
+        img = g_card([z], generator=gen)
+        on_card = inc(img, normalize_input=False).cpu().numpy()
+        on_cpu = inc_cpu(img.cpu(), normalize_input=False).numpy()
+    feat_err = float(np.abs(on_card - on_cpu).max() / np.abs(on_cpu).max())
+    detail("generate_fid_1024", size=SIZE_1024, generate_cli_seconds=round(cli_s, 3),
+           png=list(side), inception=f"full width, seeded {INCEPTION_SEED}", **stream,
+           features_cuda_vs_cpu_max_rel_err=feat_err, tf32=False, card=card,
+           tolerance="Inception's pool3 features of 2 of the card's images, card vs CPU, "
+                     "1e-3 of the CPU's largest")
+    if not feat_err <= 1e-3:
+        fail(f"1024px pool3 features on the card vs the CPU: {feat_err} > 1e-3")
+    del g_card, inc, inc_cpu, g, img
+    torch.cuda.empty_cache()
+    return {k: v["launches"] for k, v in stream.items()}
+
+
+def path_1024_phases(dev, card, work):
+    """The 1024px group: kernels_1024_vs_plain, train_1024, remat_vs_plain_64
+    and generate_fid_1024. Returns what the kernels line reports of it."""
+    t0 = time.time()
+    os.makedirs(work, exist_ok=True)
+    rng = torch.Generator(dev).manual_seed(1024)
+    kernels = kernels_1024_vs_plain(rng, card)
+    train_launches, train = train_1024(dev, card, work)
+    remat64 = remat_vs_plain_64(dev, work)
+    fid_launches = generate_fid_1024(dev, card, work)
+    shutil.rmtree(work, ignore_errors=True)
+    detail("path_1024", seconds=round(time.time() - t0, 1))
+    return {"kernels": kernels, "train_launches": train_launches, "train": train,
+            "remat64": remat64, "fid_launches": fid_launches}
+
+
+BENCH_WARMUP, BENCH_ITERS = 9, 32  # bench's defaults are 33 and 64
+
+
 def run_bench():
     """``python -m content_aware_gan_compression_torch.bench`` with its
-    defaults in a subprocess: its one JSON line, checked for bench.py's keys
-    and the full objective."""
+    defaults but a shorter window (BENCH_WARMUP, BENCH_ITERS) in a
+    subprocess: its one JSON line, checked for bench.py's keys (and
+    ``remat`` off, peak memory) and the full objective."""
     t0 = time.time()
-    proc = subprocess.run([sys.executable, "-m", "content_aware_gan_compression_torch.bench"],
+    proc = subprocess.run([sys.executable, "-m", "content_aware_gan_compression_torch.bench",
+                           "--warmup", str(BENCH_WARMUP), "--iters", str(BENCH_ITERS)],
                           cwd=REPO, capture_output=True, text=True, timeout=600)
     if proc.returncode != 0:
         fail(f"bench rc {proc.returncode}: {proc.stderr[-3000:]}")
     lines = proc.stdout.strip().splitlines()
     out = json.loads(lines[-1]) if lines else {}
-    keys = {"metric", "value", "unit", "vs_baseline", "mfu", "objective"}
+    keys = {"metric", "value", "unit", "vs_baseline", "mfu", "objective", "remat",
+            "peak_memory_gb"}
     if (len(lines) != 1 or set(out) != keys or out["objective"] != "full_kd"
-            or out["metric"] != "retrain_iters_per_sec" or not out["value"] > 0):
+            or out["metric"] != "retrain_iters_per_sec" or not out["value"] > 0
+            or out["remat"] is not False or not out["peak_memory_gb"] > 0):
         fail(f"bench printed {proc.stdout[-2000:]}")
     return out, time.time() - t0
 
@@ -3138,36 +3717,9 @@ def main():
     if not 0.0 < coi < 1.0:
         fail(f"full_kd: the mask keeps {coi} of the teacher's pixels at iteration 0")
 
-    # -- 7. one iteration at 64px on the card against the CPU ------------------
-    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
-                                     allow_tf32=False):
-        small_checks = train_vs_float64(work, dev)
-    detail("train_cuda_vs_cpu", size=64, batch=4, tf32=False, lr=0.0,
-           cudnn_deterministic=True, **small_checks,
-           measure="largest |a-b| / max|float64| over each phase's parameter tensors",
-           tolerance="card <= 2 * cpu + 1e-4, per phase and for the losses")
-
-    # -- 7b. one bfloat16 iteration at 64px against float64 ----------------------
-    t0 = time.time()
-    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
-                                     allow_tf32=False):
-        bf16_checks = train_vs_float64(work, dev, ("full_kd",), "bfloat16", 1e-3)
-    detail("train_bf16_vs_float64", size=64, batch=4, tf32=False, lr=0.0, compute_dtype="bfloat16",
-           cudnn_deterministic=True, seconds=round(time.time() - t0, 1), **bf16_checks,
-           measure="|a-b| / |float64| over each phase's parameter gradients as one vector",
-           tolerance="card <= 2 * cpu + 1e-3, per phase and for the losses")
-
-    # -- 7c. the bfloat16 retraining path at 256px and its rate ------------------
-    t0 = time.time()
-    bf16_launches, bf16_rates = bf16_train_phases(student, teacher, parser, reals, want_phase,
-                                                  dev)
-    detail("train_rate_bf16", size=SIZE, batch=BATCH, path_batch=PATH_BATCH,
-           compute_dtype="bfloat16", objective="full_kd", seconds=round(time.time() - t0, 1),
-           launches=bf16_launches, per_phase_want={k: want_phase[k] for k in want_phase},
-           **bf16_rates, window="iterations 16-31 as train_rate's full_kd window",
-           note="PyTorch's defaults (cuDNN TF32 on, matmul TF32 off); full-width seeded "
-                "LPIPS-VGG16 and BiSeNet; launches from iterations 0-4, opt_state float32, "
-                "every one a bf16 launch")
+    # -- 7 and 7b. one iteration at 64px on the card against float64 on the
+    # CPU, in float32 and bfloat16; beside phase 8 (``beside``) ------------------
+    float64_checks = beside(deterministic(float64_phases), work, dev)
 
     # -- 8. the train CLI: two iterations, then a resume, full objective ------
     cache = os.path.join(work, "ffhq256_seeded.npy")
@@ -3224,6 +3776,28 @@ def main():
     if head[:8] != b"\x89PNG\r\n\x1a\n" or struct.unpack(">II", head[16:24]) != (
             2 + 2 * (SIZE + 2),) * 2:
         fail("train CLI sample grid is not the expected PNG")
+
+    small_checks, bf16_checks, bf16_seconds = float64_checks.result()
+    detail("train_cuda_vs_cpu", size=64, batch=4, tf32=False, lr=0.0,
+           cudnn_deterministic=True, **small_checks, beside="train_cli",
+           measure="largest |a-b| / max|float64| over each phase's parameter tensors",
+           tolerance="card <= 2 * cpu + 1e-4, per phase and for the losses")
+    detail("train_bf16_vs_float64", size=64, batch=4, tf32=False, lr=0.0, compute_dtype="bfloat16",
+           cudnn_deterministic=True, seconds=bf16_seconds, **bf16_checks, beside="train_cli",
+           measure="|a-b| / |float64| over each phase's parameter gradients as one vector",
+           tolerance="card <= 2 * cpu + 1e-3, per phase and for the losses")
+
+    # -- 7c. the bfloat16 retraining path at 256px and its rate ------------------
+    t0 = time.time()
+    bf16_launches, bf16_rates = bf16_train_phases(student, teacher, parser, reals, want_phase,
+                                                  dev)
+    detail("train_rate_bf16", size=SIZE, batch=BATCH, path_batch=PATH_BATCH,
+           compute_dtype="bfloat16", objective="full_kd", seconds=round(time.time() - t0, 1),
+           launches=bf16_launches, per_phase_want={k: want_phase[k] for k in want_phase},
+           **bf16_rates, window="iterations 16-31 as train_rate's full_kd window",
+           note="PyTorch's defaults (cuDNN TF32 on, matmul TF32 off); full-width seeded "
+                "LPIPS-VGG16 and BiSeNet; launches from iterations 0-4, opt_state float32, "
+                "every one a bf16 launch")
 
     # -- 8b. data parallel: world size 1 over NCCL, 2 ranks on one card ---------
     dp_launches, dp_world1 = dp_world1_phase(student, teacher, parser, reals, want_phase, dev,
@@ -3320,14 +3894,14 @@ def main():
     # -- training rate over one cadence window: iterations 16-31 --------------
     # full_kd over the whole window; KD-L1, for the cost of the full
     # objective beside it, over its first half (1 R1 and 2 path-length steps
-    # in 8 iterations), which keeps the smoke near 10 minutes
+    # in 8 iterations); under PyTorch's defaults only (the TF32-off windows
+    # made room for path_1024; PERF.md keeps their last numbers)
     train_rate = {}
+    torch.backends.cudnn.allow_tf32 = True
     for objective, tr, window in (("full_kd", full, range(16, 32)),
                                   ("kd_l1", trainer, range(16, 24))):
-        mpl = torch.zeros((), device=dev)
-        for label, tf32 in (("tf32_off", False), ("pytorch_defaults", True)):
-            torch.backends.cudnn.allow_tf32 = tf32
-            train_rate[f"{objective}_{label}"], mpl = train_window(tr, reals, mpl, window)
+        train_rate[f"{objective}_pytorch_defaults"], _ = train_window(
+            tr, reals, torch.zeros((), device=dev), window, profile=objective == "full_kd")
     torch.backends.cudnn.allow_tf32 = False
     detail("train_rate", size=SIZE, batch=BATCH, path_batch=PATH_BATCH, dtype="float32",
            window="full_kd iterations 16-31: 16 D and G steps, 1 R1, 4 path length; "
@@ -3379,6 +3953,9 @@ def main():
     profiler_counts = profiler_phase(card)
     convert_counts = convert_phase(dev, card, work)
     down_counts = down_vs_plain(dev)
+
+    # -- 30. path_1024: the 1024px operating point, with remat ---------------------
+    p1024 = path_1024_phases(dev, card, os.path.join(REPO, "build", "chip_smoke_1024"))
 
     def new_paths(name, vector=False):
         """The kernels line's launches of ``name`` on the sparsity and
@@ -3470,6 +4047,25 @@ def main():
     for name in bf16_entry:
         bf16_entry[name]["launches_dp_world1_nccl"] = total_launches(
             {k[:-len("_bf16")]: v for k, v in dp_launches.items() if k.endswith("_bf16")}, name)
+    # path_1024: float32 from the 1024px FID stream and the 64px remat check,
+    # bfloat16 from the 1024px retraining; errors and times at the 1024px shapes
+    k1024 = p1024["kernels"]
+    for entry in kernels:
+        name = entry["name"]
+        for batch, c in p1024["fid_launches"].items():
+            entry[f"launches_1024_{batch}"] = total_launches(c, name)
+        entry["launches_remat_64"] = total_launches(p1024["remat64"]["launches"]["remat"], name)
+        entry["max_abs_err_1024"] = k1024["float32"]["max_abs_err"][name]
+        entry["times_1024"] = k1024["times"]["float32"][name]
+        if name == "fused_noise_bias_lrelu":
+            entry["epilogue_2_31"] = k1024["epilogue_2_31"]
+    for name in bf16_entry:
+        for run in ("remat", "no_remat"):
+            bf16_entry[name][f"launches_train_1024_{run}"] = total_launches(
+                {k[:-len("_bf16")]: v for k, v in p1024["train"][run]["launches"].items()
+                 if k.endswith("_bf16")}, name)
+        bf16_entry[name]["max_abs_err_1024"] = k1024["bfloat16"]["max_abs_err"][name]
+        bf16_entry[name]["times_1024"] = k1024["times"]["bfloat16"][name]
     for entry in list(kernels):
         name = entry["name"]
         t = bf16_kernel_times[name]

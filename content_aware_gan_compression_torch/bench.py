@@ -15,17 +15,24 @@ generate`` times the student's forward instead.
 
 Prints ONE JSON line with ``bench.py``'s keys:
   {"metric": "retrain_iters_per_sec", "value": N, "unit": "iter/s",
-   "vs_baseline": ..., "mfu": ..., "objective": "full_kd" or "gan_l1"}
+   "vs_baseline": ..., "mfu": ..., "objective": "full_kd" or "gan_l1",
+   "remat": true or false, "peak_memory_gb": ...}
 
 Timing: the host clock over ``--iters`` iterations after ``--warmup``, each
 end of the window after ``torch.cuda.synchronize()``. ``vs_baseline`` is the
 rate over the reference's 2x V100 (450k iterations in 131 h), scaled by
 batch / 16. ``mfu`` counts the model's MACs per iteration (``bench.py``'s
 formula, from ``utils/calculators.py``) against the card's dense peak for
-the compute type. No target is stated. PyTorch's defaults hold: cuDNN may
-use TF32 for float32 convolutions, float32 matmuls do not. The JAX bench's
-TPU-only flags (``--remat``, ``--packed*``, ``--trace_dir``,
-``--per_iter_fetch``, ``--steps_per_dispatch``) have no counterpart.
+the compute type: with ``--remat`` it still counts the model's MACs, not the
+checkpointed blocks' replays, as ``bench.py`` does. ``peak_memory_gb`` is
+``torch.cuda.max_memory_allocated`` over the run (null on the CPU). No
+target is stated. PyTorch's defaults hold: cuDNN may use TF32 for float32
+convolutions, float32 matmuls do not. ``--remat`` checkpoints the
+student's synthesis blocks and D's res-blocks (``TrainConfig.remat``), as
+the JAX flag does; on the H100 it lowers no peak, which R1's grad of grad
+sets (PERF.md). The JAX bench's TPU-only flags (``--packed*``,
+``--trace_dir``, ``--per_iter_fetch``, ``--steps_per_dispatch``) have no
+counterpart.
 """
 
 from __future__ import annotations
@@ -59,6 +66,8 @@ def parse_args(argv=None):
     p.add_argument("--remove_ratio", type=float, default=0.7)
     p.add_argument("--keep_multiple", type=int, default=1,
                    help="round kept student widths UP to this multiple")
+    p.add_argument("--remat", action="store_true", default=False,
+                   help="checkpoint synthesis blocks (1024px memory)")
     p.add_argument("--full_objective", action=argparse.BooleanOptionalAction, default=True,
                    help="the reference's default objective: content-aware KD (BiSeNet "
                         "parse of the teacher batch) + LPIPS-KD every G step; "
@@ -138,7 +147,7 @@ def main(argv=None):
     cfg = TrainConfig(generated_img_size=args.size, batch_size=args.batch_size,
                       compute_dtype=args.dtype, opt_state_dtype=args.opt_state_dtype,
                       content_aware_KD=args.full_objective,
-                      kd_lpips_lambda=3.0 if args.full_objective else 0.0)
+                      kd_lpips_lambda=3.0 if args.full_objective else 0.0, remat=args.remat)
     dtype = torch_dtype(args.dtype)
     seeded = lambda seed: torch.Generator().manual_seed(seed)  # noqa: E731
     g = Generator(GeneratorConfig(
@@ -199,7 +208,10 @@ def main(argv=None):
         "value": round(iters_per_sec, 4), "unit": "iter/s",
         "vs_baseline": round(iters_per_sec * args.batch_size / (ref_rate * 16), 4),
         "mfu": round(mfu, 4),
-        "objective": "full_kd" if args.full_objective else "gan_l1"}))
+        "objective": "full_kd" if args.full_objective else "gan_l1",
+        "remat": args.remat,
+        "peak_memory_gb": (round(torch.cuda.max_memory_allocated(device) / 1e9, 3)
+                           if device.type == "cuda" else None)}))
 
 
 if __name__ == "__main__":

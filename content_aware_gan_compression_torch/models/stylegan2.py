@@ -34,10 +34,22 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .. import parallel
 from ..ops import blur, fused_leaky_relu, fused_noise_bias_lrelu, make_kernel, upsample_2d
 from ..utils.runtime import resolve_device
+
+def checkpointed(fn, remat: bool, *args):
+    """``fn(*args)``, under activation checkpointing when ``remat`` and
+    gradients are being recorded: ``torch.utils.checkpoint`` in its
+    non-reentrant form, the one that supports ``autograd.grad``,
+    ``backward(inputs=...)`` and the grad of grad of R1 and path length.
+    ``fn`` draws nothing at random, so no RNG state is stashed."""
+    if not (remat and torch.is_grad_enabled()):
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+
 
 # ---------------------------------------------------------------------------
 # configs
@@ -404,13 +416,29 @@ class Generator(nn.Module):
 
     # -- forward ------------------------------------------------------------
 
-    def synthesis(self, latent, noise, dtype=None):
+    def _block(self, pair, x, skip, lat0, lat1, lat2, n0, n1):
+        """Resolution block ``pair``: the up StyledConv, the StyledConv and
+        the ToRGB with its skip. Returns (x, skip, the two StyledConvs'
+        modulation scalars, the ToRGB's)."""
+        x, s0 = self.convs[2 * pair](x, lat0, n0)
+        x, s1 = self.convs[2 * pair + 1](x, lat1, n1)
+        skip, s2 = self.to_rgbs[pair](x, lat2, skip)
+        return x, skip, s0, s1, s2
+
+    def synthesis(self, latent, noise, dtype=None, remat=False):
         """W+ latent [B, n_latent, D] + per-layer noise -> (NHWC image, list
         of per-scale NHWC rgb skips, list of modulation scalars) (reference
         model.py:612-646). The scalars [B, in] are those of conv1, of every
         StyledConv and of the last ToRGB only (reference model.py:637-639;
         the JAX package's ``last_rgb_scalars``). ``dtype`` casts the
-        constant input and the latent."""
+        constant input and the latent.
+
+        ``remat`` checkpoints each resolution block (the JAX package's
+        ``jax.checkpoint`` of ``_synthesis``'s block): its activations are
+        not kept for the backward but recomputed there, about a third more
+        work. ``conv1`` and ``to_rgb1`` stay outside. The math is the same:
+        a block draws nothing at random and issues no collective, so its
+        replay gives the same values."""
         batch = latent.shape[0]
         # the one layout copy of the forward: the [1, C, 4, 4] constant to
         # NHWC (16*C floats), so that x * s below comes out NHWC-contiguous
@@ -423,13 +451,13 @@ class Generator(nn.Module):
         skip, _ = self.to_rgb1(x, latent[:, 1])
         rgb_list = [skip]
         i = 1
-        for pair, to_rgb in enumerate(self.to_rgbs):
-            for j in range(2):
-                x, s = self.convs[2 * pair + j](x, latent[:, i + j], noise[2 * pair + 1 + j])
-                styles.append(s)
-            skip, s = to_rgb(x, latent[:, i + 2], skip)
+        for pair in range(len(self.to_rgbs)):
+            args = (pair, x, skip, latent[:, i], latent[:, i + 1], latent[:, i + 2],
+                    noise[2 * pair + 1], noise[2 * pair + 2])
+            x, skip, s0, s1, s2 = checkpointed(self._block, remat, *args)
+            styles += [s0, s1]
             if pair == len(self.to_rgbs) - 1:
-                styles.append(s)
+                styles.append(s2)
             rgb_list.append(skip)
             i += 2
         return skip, rgb_list, styles
@@ -439,7 +467,7 @@ class Generator(nn.Module):
                 randomize_noise: bool = True, generator=None,
                 return_latents: bool = False, return_rgb_list: bool = False,
                 return_style_scalars: bool = False, PPL_regularize: bool = False,
-                ppl_noise=None, output_format: str = "NCHW", dtype=None):
+                ppl_noise=None, output_format: str = "NCHW", dtype=None, remat: bool = False):
         """Generator forward (the JAX package's generator_apply).
 
         Args:
@@ -465,6 +493,9 @@ class Generator(nn.Module):
             the mapping MLP, the noise maps, ``y`` and the synthesis run in
             it; the path lengths are computed in float32. None keeps
             float32.
+          remat: checkpoint the synthesis's resolution blocks (``synthesis``),
+            the JAX package's ``remat``: the same values, less activation
+            memory, the blocks' forward replayed in the backward.
 
         Returns images (a list per scale with ``return_rgb_list``), as
         ``(images, styles)`` with ``return_style_scalars`` (the modulation
@@ -514,7 +545,7 @@ class Generator(nn.Module):
         if PPL_regularize:
             if not latent.requires_grad:  # W given as a plain tensor
                 latent = latent.detach().requires_grad_(True)
-            image, _, _ = self.synthesis(latent, noise, dtype)
+            image, _, _ = self.synthesis(latent, noise, dtype, remat)
             if ppl_noise is None:
                 if generator is None:
                     raise ValueError("PPL_regularize without ppl_noise requires generator")
@@ -524,7 +555,7 @@ class Generator(nn.Module):
             path_lengths = torch.sqrt(torch.square(grad.float()).sum(2).mean(1))
             return to_out(image), path_lengths
 
-        image, rgb_list, styles = self.synthesis(latent, noise, dtype)
+        image, rgb_list, styles = self.synthesis(latent, noise, dtype, remat)
         if return_rgb_list:
             out = [to_out(r) for r in rgb_list]
         else:
@@ -696,12 +727,18 @@ class Discriminator(nn.Module):
             EqualLinear(ch[4], 1, generator=g))
         self.to(device)
 
-    def forward(self, image_nhwc, dtype=None):
+    def forward(self, image_nhwc, dtype=None, remat=False):
         """[B, H, W, 3] -> scores [B, 1], computed in ``dtype`` (the image's
-        type if None)."""
+        type if None). ``remat`` checkpoints each ResBlock, as the JAX
+        package's ``discriminator_apply(remat=True)``. Under R1's grad of
+        grad (``autograd.grad(create_graph=True)``) the replayed blocks'
+        graphs are kept for the second order, so there remat frees nothing,
+        unlike JAX's. ``convs[0]``, the minibatch stddev (a collective under
+        data parallel) and the final layers stay outside."""
         x = image_nhwc if dtype is None else image_nhwc.to(dtype)
-        for conv in self.convs:
-            x = conv(x)
+        x = self.convs[0](x)
+        for block in self.convs[1:]:
+            x = checkpointed(block, remat, x)
         x = minibatch_stddev(x, self.config.stddev_group, self.config.stddev_feat)
         x = self.final_conv(x)
         # flatten in NCHW order, so final_linear matches reference checkpoints

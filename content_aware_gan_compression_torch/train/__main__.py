@@ -7,8 +7,13 @@ flag-compatible with the reference train.py):
 Every reference flag keeps its name and default; boolean flags parse with
 ``str2bool``. ``--device`` (default ``cuda``) picks the card or the CPU.
 ``--dtype bfloat16`` runs the steps in bfloat16 and ``--opt_state_dtype
-bfloat16`` stores Adam's second moment in it, as in the JAX CLI. The JAX
-CLI's TPU flags (``--remat``, ``--packed_trunk``, ``--steps_per_dispatch``,
+bfloat16`` stores Adam's second moment in it, as in the JAX CLI.
+``--remat`` checkpoints the student's synthesis blocks and D's res-blocks
+(``TrainConfig.remat``), as the JAX CLI's flag does. On the H100 it lowers
+no peak: it frees the D and G phases' activations, but R1's grad of grad
+keeps the replayed blocks' graphs, and R1 sets the peak (PERF.md); it costs
+10-12% of the rate at 1024px and is there for parity with the JAX CLI.
+The JAX CLI's TPU flags (``--packed_trunk``, ``--steps_per_dispatch``,
 ``--input_put``, ``--data_echo``) have no counterpart.
 
 Data parallel: the JAX CLI's ``--n_devices N`` is torchrun's
@@ -94,6 +99,8 @@ def parse_args(argv=None):
                    choices=["float32", "bfloat16"],
                    help="storage dtype for Adam's second moment (bfloat16 halves its "
                         "bytes; arithmetic stays f32 — deviates from reference numerics)")
+    p.add_argument("--remat", action="store_true", default=hp.remat,
+                   help="checkpoint synthesis/D blocks (1024px memory)")
     p.add_argument("--parsing_ckpt", type=str, default="./Model/face_parsing/79999_iter.pth")
     p.add_argument("--lpips_vgg_ckpt", type=str,
                    default="./Model/metrics/vgg16_torchvision.pth")
@@ -122,7 +129,8 @@ def config_from_args(args):
         fid_n_sample=args.fid_n_sample, fid_batch=args.fid_batch, teacher=args.teacher_ckpt,
         kd_l1_lambda=args.kd_l1_lambda, kd_lpips_lambda=args.kd_lpips_lambda,
         kd_mode=args.kd_mode, content_aware_KD=args.content_aware_KD, seed=args.seed,
-        compute_dtype=args.dtype, opt_state_dtype=args.opt_state_dtype)
+        compute_dtype=args.dtype, opt_state_dtype=args.opt_state_dtype,
+        remat=args.remat)
     return cfg
 
 
@@ -196,7 +204,8 @@ def _train(args, device):
         f"  Device:\n"
         f"    {trainer.device}, {parallel.world_size()} process(es), global batch "
         f"{cfg.batch_size}\n"
-        f"    Compute dtype: {cfg.compute_dtype}\n\n"
+        f"    Compute dtype: {cfg.compute_dtype}\n"
+        f"    Remat: {cfg.remat}\n\n"
         f"  Training Params:\n"
         f"    Training Iterations: {cfg.training_iters}\n"
         f"    Batch Size: {cfg.batch_size}\n"

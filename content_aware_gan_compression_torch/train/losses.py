@@ -21,14 +21,15 @@ def g_nonsaturating_loss(fake_pred):
     return F.softplus(-fake_pred).mean()
 
 
-def r1_penalty(discriminator, real_img, dtype=None):
+def r1_penalty(discriminator, real_img, dtype=None, remat=False):
     """R1 = E[||grad_x D(x)||^2] (reference train.py:194-200), with the graph
-    kept for its own gradient; D runs in ``dtype``, the gradient comes back
-    in the image's type. Returns the raw penalty; the caller weighs it by
-    r1/2 * d_reg_every."""
+    kept for its own gradient; D runs in ``dtype`` (its res-blocks
+    checkpointed with ``remat``), the gradient comes back in the image's
+    type. Returns the raw penalty; the caller weighs it by r1/2 *
+    d_reg_every."""
     real_img = real_img.detach().requires_grad_(True)
-    (grad,) = torch.autograd.grad(discriminator(real_img, dtype).float().sum(), real_img,
-                                  create_graph=True)
+    (grad,) = torch.autograd.grad(discriminator(real_img, dtype, remat).float().sum(),
+                                  real_img, create_graph=True)
     return grad.reshape(grad.shape[0], -1).square().sum(1).mean()
 
 

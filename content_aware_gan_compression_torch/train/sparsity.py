@@ -102,7 +102,8 @@ def sparse_g_step(g, g_opt, d, draws, cfg, opts, teacher=None, lpips=None,
     percept term (``opts['kd_percept_mode']``: VGG or LPIPS on the
     256-pooled images, with ``lpips``) when there is a teacher. One Adam
     step of ``g``. The teacher, the student and D run in ``dtype``, as the
-    JAX package threads ``compute_dtype`` there; the losses in float32."""
+    JAX package threads ``compute_dtype`` there; the losses in float32.
+    ``cfg.remat`` checkpoints the student's and D's blocks, as there."""
     teacher_list = None
     if teacher is not None:
         with torch.no_grad():
@@ -111,10 +112,11 @@ def sparse_g_step(g, g_opt, d, draws, cfg, opts, teacher=None, lpips=None,
                 output_format="NHWC", return_rgb_list=True, dtype=dtype)]
     fake_list, style_list = g(draws["z"], inject_index=draws["inject_index"],
                               noise=draws["noise"], output_format="NHWC",
-                              return_rgb_list=True, return_style_scalars=True, dtype=dtype)
+                              return_rgb_list=True, return_style_scalars=True, dtype=dtype,
+                              remat=cfg.remat)
     fake_list = [_f32_up(f) for f in fake_list]
     fake_img = fake_list[-1]
-    g_loss = g_nonsaturating_loss(d(fake_img, dtype).float())
+    g_loss = g_nonsaturating_loss(d(fake_img, dtype, cfg.remat).float())
     sparse = l1_style_sparse_loss([_f32_up(s) for s in style_list], opts["sparsity_eta"])
     metrics = {"g": g_loss.detach(), "sparse": sparse.detach()}
     total = g_loss + sparse

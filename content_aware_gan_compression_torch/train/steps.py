@@ -22,6 +22,11 @@ JAX package's mesh. Without one they are the one-process steps.
 ``make_train_steps(dtype=...)``; ``TrainConfig.compute_dtype``): the
 generators, D and the aux nets run in it, D's logits and the losses in
 float32. None keeps float32.
+
+``cfg.remat`` checkpoints D's res-blocks in every D call and the student's
+resolution blocks in ``g_step`` and ``g_reg_step``, the JAX package's call
+sites; ``d_step``'s fake, made without gradients, and the frozen teacher
+run without it. The draws stay outside, so the random stream is the same.
 """
 
 from __future__ import annotations
@@ -210,8 +215,8 @@ def d_step(g, d, d_opt, real, draws, cfg, dtype=None) -> dict:
     batch and the real batch, then one Adam step of D."""
     with torch.no_grad():
         fake = _fake(g, draws, dtype=dtype)
-    fake_pred = d(fake, dtype)
-    real_pred = d(real, dtype)
+    fake_pred = d(fake, dtype, cfg.remat)
+    real_pred = d(real, dtype, cfg.remat)
     loss = d_logistic_loss(real_pred.float(), fake_pred.float())
     d_opt.zero_grad(set_to_none=True)
     loss.backward()
@@ -224,7 +229,7 @@ def d_step(g, d, d_opt, real, draws, cfg, dtype=None) -> dict:
 def d_reg_step(d, d_opt, real, cfg, dtype=None) -> dict:
     """D R1 step (reference D_Reg_BackProp): grad of grad through D, the
     image's gradient in the real batch's type."""
-    r1 = r1_penalty(d, real, dtype)
+    r1 = r1_penalty(d, real, dtype, cfg.remat)
     d_opt.zero_grad(set_to_none=True)
     (cfg.discriminator_r1 / 2 * r1 * cfg.d_reg_freq).backward()
     parallel.all_reduce_grads(d.parameters())
@@ -247,10 +252,10 @@ def g_step(g, g_opt, d, draws, cfg, teacher=None, lpips=None, parser=None,
                             noise=draws["teacher_noise"], output_format="NHWC",
                             return_rgb_list=need_lists, dtype=dtype)
         teacher_list = list(t_out) if need_lists else [t_out]
-    g_out = _fake(g, draws, return_rgb_list=need_lists, dtype=dtype)
+    g_out = _fake(g, draws, return_rgb_list=need_lists, dtype=dtype, remat=cfg.remat)
     fake_list = list(g_out) if need_lists else [g_out]
     fake_img = fake_list[-1]
-    g_loss = g_nonsaturating_loss(d(fake_img, dtype).float())
+    g_loss = g_nonsaturating_loss(d(fake_img, dtype, cfg.remat).float())
     metrics = {"g": g_loss.detach()}
     total = g_loss
     if teacher_list is not None:
@@ -278,7 +283,8 @@ def g_reg_step(g, g_opt, draws, mean_path_length, cfg, dtype=None):
     as the JAX package differentiates it. Returns (the new running mean,
     metrics)."""
     _, path_lengths = g(draws["z"], inject_index=draws["inject_index"], noise=draws["noise"],
-                        PPL_regularize=True, ppl_noise=draws["ppl_noise"], dtype=dtype)
+                        PPL_regularize=True, ppl_noise=draws["ppl_noise"], dtype=dtype,
+                        remat=cfg.remat)
     path_mean = mean_path_length + 0.01 * (parallel.global_mean(path_lengths)
                                            - mean_path_length)
     path_loss = torch.mean(torch.square(path_lengths - path_mean))

@@ -22,7 +22,8 @@ the allocator's first requests.
 
 ``--trace_dir`` writes a ``torch.profiler`` Chrome trace of the timed
 iterations there. ``--dtype`` is bfloat16 by default, as in the JAX script.
-The JAX script's ``--remat`` is TPU-only and has no counterpart. Prints one
+``--remat`` checkpoints the student's synthesis blocks and D's res-blocks
+(``TrainConfig.remat``), as the JAX script's flag does. Prints one
 JSON object: ``compile_s``, then each phase's ``mean_ms`` and ``calls``,
 then ``amortized_iter_ms``. Runs on ``cuda`` unless ``--device cpu`` is
 given.
@@ -43,6 +44,8 @@ def parse_args(argv=None):
     p.add_argument("--iters", type=int, default=10)
     p.add_argument("--remove_ratio", type=float, default=0.7)
     p.add_argument("--dtype", type=str, default="bfloat16", choices=["float32", "bfloat16"])
+    p.add_argument("--remat", action="store_true", default=False,
+                   help="checkpoint synthesis/D blocks (1024px memory)")
     p.add_argument("--trace_dir", type=str, default=None,
                    help="write a torch.profiler Chrome trace here")
     p.add_argument("--device", type=str, default="cuda")
@@ -64,7 +67,8 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     cfg = TrainConfig(generated_img_size=args.size, batch_size=args.batch_size,
-                      compute_dtype=args.dtype, content_aware_KD=False, kd_lpips_lambda=0.0)
+                      compute_dtype=args.dtype, content_aware_KD=False, kd_lpips_lambda=0.0,
+                      remat=args.remat)
     dtype = torch_dtype(args.dtype)
     seeded = lambda seed: torch.Generator().manual_seed(seed)  # noqa: E731
     g = Generator(GeneratorConfig(size=args.size,

@@ -20,7 +20,8 @@ from content_aware_gan_compression_tpu.utils.calculators import (
 from content_aware_gan_compression_torch import bench, train
 from content_aware_gan_compression_torch.train.__main__ import main as train_main
 from content_aware_gan_compression_torch.utils import load_checkpoint
-from torch_train_util import N_MLP, SIZE, STYLE, train_kw, write_checkpoints
+from torch_train_util import (
+    N_MLP, SIZE, STYLE, record_train_configs, train_kw, write_checkpoints)
 from torch_train_util import torch_threads  # noqa: F401
 
 BF = torch.bfloat16
@@ -48,8 +49,9 @@ def test_train_cli_bf16_saves_and_resumes_bf16_nu(tmp_path, capsys):
     moments, still bfloat16."""
     student, teacher = write_checkpoints(tmp_path)
     train_main(_args(tmp_path, teacher, "--ckpt", student, "--iter", "2",
-                     "--exp_root", str(tmp_path / "a")))
-    assert "Compute dtype: bfloat16" in capsys.readouterr().out
+                     "--exp_root", str(tmp_path / "a"), "--remat"))
+    out = capsys.readouterr().out
+    assert "Compute dtype: bfloat16" in out and "Remat: True" in out
     exp = _exp(tmp_path / "a")
     recs = [json.loads(line) for line in (exp / "metrics.jsonl").read_text().splitlines()]
     assert [r["iter"] for r in recs] == [0, 1]
@@ -110,12 +112,15 @@ def test_reference_pt_with_bf16_nu_keeps_the_configured_type(tmp_path):
 
 
 @pytest.mark.parametrize("metric", ["retrain", "generate"])
-def test_bench_prints_one_json_line(capsys, metric):
+def test_bench_prints_one_json_line(capsys, monkeypatch, metric):
     """The bench on the CPU at 16px (bfloat16 by default): one JSON line
     with bench.py's keys; the retrain line with ``gan_l1`` here, as the
-    full objective's full-width BiSeNet at 512px is too slow for the CPU."""
+    full objective's full-width BiSeNet at 512px is too slow for the CPU,
+    and with ``--remat``, which reaches the steps' ``TrainConfig`` and the
+    line (peak memory is null on the CPU)."""
+    made = record_train_configs(monkeypatch)
     bench.main(["--device", "cpu", "--size", "16", "--iters", "2", "--warmup", "1",
-                "--batch_size", "2", "--no-full_objective", "--metric", metric])
+                "--batch_size", "2", "--no-full_objective", "--metric", metric, "--remat"])
     lines = capsys.readouterr().out.strip().splitlines()
     assert len(lines) == 1
     out = json.loads(lines[0])
@@ -123,11 +128,14 @@ def test_bench_prints_one_json_line(capsys, metric):
         assert set(out) == {"metric", "value", "unit", "vs_baseline"}
         assert out["metric"] == "generate_16px_images_per_sec_per_chip" and out["value"] > 0
         return
-    assert set(out) == {"metric", "value", "unit", "vs_baseline", "mfu", "objective"}
+    assert set(out) == {"metric", "value", "unit", "vs_baseline", "mfu", "objective", "remat",
+                        "peak_memory_gb"}
     assert (out["metric"], out["unit"], out["objective"]) == (
         "retrain_iters_per_sec_16px", "iter/s", "gan_l1")
     assert out["value"] > 0 and out["mfu"] >= 0
-    assert bench.parse_args([]).dtype == "bfloat16"
+    assert out["remat"] is True and out["peak_memory_gb"] is None
+    assert [c.remat for c in made] == [True]
+    assert bench.parse_args([]).dtype == "bfloat16" and bench.parse_args([]).remat is False
 
 
 def test_bench_counts_bench_py_macs():

@@ -12,7 +12,7 @@ from content_aware_gan_compression_torch.models import (
     DiscriminatorConfig, GeneratorConfig, default_net_shape)
 from content_aware_gan_compression_torch.ops.cuda import blur4_plain, lane_width, launch_plan
 from content_aware_gan_compression_torch.ops.cuda.blur4 import (
-    MAX_BLOCK_THREADS, MAX_GRID_YZ, MAX_SMEM_BYTES, STRIP_ROWS)
+    LANES, MAX_BLOCK_THREADS, MAX_GRID_YZ, MAX_SMEM_BYTES, STRIP_ROWS)
 from torch_train_util import torch_threads  # noqa: F401
 
 
@@ -125,36 +125,38 @@ def test_lane_width_is_4_exactly_for_aligned_multiples_of_4(c, pointers, want):
     assert lane_width(c, *pointers) == want
 
 
-def _emulate(x, taps, plan):
+def _emulate(x, taps, plan, blocks=None):
     """The kernel's algorithm in PyTorch, block by block (all images of a
     grid column at once): stage the block's input window with its halo
     zero-filled, walk down its rows, feed each row to the four output rows
     that use it through a ring of accumulators, store the row that is done.
-    Returns the output and how often each element was stored."""
+    ``blocks`` limits it to those (bx, by); all of them if None. Returns the
+    output and how often each element was stored."""
     b, h, w, c = x.shape
     _, ho, wo, _ = plan.out_shape
     t = torch.tensor(taps, dtype=x.dtype).reshape(4, 4)
     out = torch.full((b, ho, wo, c), float("nan"), dtype=x.dtype)
     stores = torch.zeros(ho, wo, c, dtype=torch.int32)
-    for bx in range(plan.grid[0]):
-        for by in range(plan.grid[1]):
-            rows, cols, chans = plan.tile(bx, by)
-            in_rows, in_cols = plan.window(bx, by)
-            win = torch.zeros(b, len(in_rows), len(in_cols), len(chans), dtype=x.dtype)
-            r0, r1 = max(in_rows.start, 0), min(in_rows.stop, h)
-            c0, c1 = max(in_cols.start, 0), min(in_cols.stop, w)
-            win[:, r0 - in_rows.start:r1 - in_rows.start, c0 - in_cols.start:c1 - in_cols.start] \
-                = x[:, r0:r1, c0:c1, chans.start:chans.stop]
-            ring = [torch.zeros(b, len(cols), len(chans), dtype=x.dtype) for _ in range(4)]
-            for i in range(len(in_rows)):
-                for k in range(4):  # ring[k] is output row oh0 + i - 3 + k: tap row 3 - k
-                    for dj in range(4):
-                        ring[k] = ring[k] + t[3 - k, dj] * win[:, i, dj:dj + len(cols)]
-                if i >= 3:
-                    oh = rows.start + i - 3
-                    out[:, oh, cols.start:cols.stop, chans.start:chans.stop] = ring[0]
-                    stores[oh, cols.start:cols.stop, chans.start:chans.stop] += 1
-                ring = ring[1:] + [torch.zeros_like(ring[0])]
+    if blocks is None:
+        blocks = [(bx, by) for bx in range(plan.grid[0]) for by in range(plan.grid[1])]
+    for bx, by in blocks:
+        rows, cols, chans = plan.tile(bx, by)
+        in_rows, in_cols = plan.window(bx, by)
+        win = torch.zeros(b, len(in_rows), len(in_cols), len(chans), dtype=x.dtype)
+        r0, r1 = max(in_rows.start, 0), min(in_rows.stop, h)
+        c0, c1 = max(in_cols.start, 0), min(in_cols.stop, w)
+        win[:, r0 - in_rows.start:r1 - in_rows.start, c0 - in_cols.start:c1 - in_cols.start] \
+            = x[:, r0:r1, c0:c1, chans.start:chans.stop]
+        ring = [torch.zeros(b, len(cols), len(chans), dtype=x.dtype) for _ in range(4)]
+        for i in range(len(in_rows)):
+            for k in range(4):  # ring[k] is output row oh0 + i - 3 + k: tap row 3 - k
+                for dj in range(4):
+                    ring[k] = ring[k] + t[3 - k, dj] * win[:, i, dj:dj + len(cols)]
+            if i >= 3:
+                oh = rows.start + i - 3
+                out[:, oh, cols.start:cols.stop, chans.start:chans.stop] = ring[0]
+                stores[oh, cols.start:cols.stop, chans.start:chans.stop] += 1
+            ring = ring[1:] + [torch.zeros_like(ring[0])]
     return out, stores
 
 
@@ -240,3 +242,117 @@ def test_tiled_algorithm_equals_blur4_plain_in_bf16(shape, pad, sms):
         got, stores = _emulate(x.float(), taps, plan)
         assert bool((stores == 1).all())
         torch.testing.assert_close(got.to(torch.bfloat16), want, rtol=0, atol=0)
+
+
+# -- the 1024px path ------------------------------------------------------------
+
+def _path_cases_1024():
+    """(input shape, pad) of every blur on the 1024px paths, forward and
+    backward: the full-width generator's 8 up-blurs at batch 16, the path
+    batch 8 and FID's batch 64, the 11x student's at 16 and 8 (widths down
+    to 20 and 10), and the discriminator's 16 at batch 16."""
+    full = default_net_shape(1024)
+    student = tuple(c - int(c * 0.7) for c in full)
+    cases = []
+    for batch, nets in ((16, (full, student)), (8, (full, student)), (64, (full,))):
+        for ns in nets:
+            cases += [((batch, 2 ** r + 1, 2 ** r + 1, ns[2 * (r - 2)]), (1, 1))
+                      for r in range(3, 11)]
+    ch = DiscriminatorConfig(size=1024).channels()
+    cases += [((16, 1024 >> i, 1024 >> i, ch[1024 >> i]), pad)
+              for i in range(8) for pad in ((2, 2), (1, 1))]
+    backward = []
+    for (b, h, w, c), (p0, p1) in cases:
+        grow = p0 + p1 - 3
+        backward.append(((b, h + grow, w + grow, c), (3 - p0, 3 - p1)))
+    return cases + backward
+
+
+PATH_CASES_1024 = _path_cases_1024()
+
+
+def test_1024_path_cases_are_the_paths_blurs():
+    """The student's up-blurs reach C = 20 and 10 at 512 and 1024; float32
+    lanes: float4 at 20 and the full widths, scalar at 154, 77, 39 and 10;
+    bfloat16: 16 bytes at the full widths, pairs at 154 and 20 and 10."""
+    student_c = [s[3] for s, _ in PATH_CASES_1024[8:16]]
+    assert student_c == [154, 154, 154, 154, 77, 39, 20, 10]
+    assert [lane_width(c, 0, 0) for c in student_c] == [1, 1, 1, 1, 1, 1, 4, 1]
+    assert [_bf16_lanes(c) for c in student_c] == [2, 2, 2, 2, 1, 1, 2, 2]
+    full = [s for s, _ in PATH_CASES_1024[:8] + PATH_CASES_1024[40:56]]
+    assert {s[3] for s in full} == {512, 256, 128, 64, 32}
+    assert {lane_width(s[3], 0, 0) for s in full} == {4}
+    assert {_bf16_lanes(s[3]) for s in full} == {8}
+    assert len(PATH_CASES_1024) == 2 * (5 * 8 + 16)
+
+
+def _covers_once(plan):
+    """Every output element of an image in exactly one tile: the tiles are
+    column tiles x channel tiles (x) by strips (y), so the check runs over x
+    and y apart, and each block's window is the rows and columns its
+    outputs read."""
+    _, ho, wo, c = plan.out_shape
+    cols = np.zeros((wo, c), np.int32)
+    for bx in range(plan.grid[0]):
+        _, cs, chans = plan.tile(bx, 0)
+        cols[cs.start:cs.stop, chans.start:chans.stop] += 1
+    rows = np.zeros(ho, np.int32)
+    for by in range(plan.grid[1]):
+        rs, cs, _ = plan.tile(0, by)
+        rows[rs.start:rs.stop] += 1
+        if plan.window(0, by) != (range(rs.start - plan.pad[0], rs.stop - plan.pad[0] + 3),
+                                  range(cs.start - plan.pad[0], cs.stop - plan.pad[0] + 3)):
+            return False
+    return bool((cols == 1).all() and (rows == 1).all())
+
+
+@pytest.mark.parametrize("shape,pad", PATH_CASES_1024)
+def test_1024_plans_cover_every_output_and_fit_the_card(shape, pad):
+    """In both types, at the lanes the aligned tensors take and at one
+    lane: the grid's z is the batch, the tiles cover every output once,
+    and the block, strips and grid stay in the card's limits and fill its
+    132 SMs twice or run 1-row strips."""
+    for itemsize, wide in ((4, lane_width(shape[3], 0, 0)), (2, _bf16_lanes(shape[3]))):
+        for vec in {wide, 1}:
+            plan = launch_plan(shape, pad, vec, itemsize=itemsize)
+            assert plan.grid[2] == shape[0] and plan.vec == vec
+            assert _covers_once(plan)
+            assert plan.cv_tile * plan.tw <= MAX_BLOCK_THREADS and plan.smem_bytes == 0
+            assert max(plan.grid[1:]) <= MAX_GRID_YZ
+            assert plan.th == 1 or np.prod(plan.grid) >= 2 * 132
+
+
+def test_1024_plan_of_the_student_at_c10():
+    """[16, 1025, 1025, 10], pad (1, 1), scalar lanes: blocks of 10 x 25
+    threads, 41 column tiles, 32 strips of 32 rows, 16 images."""
+    plan = launch_plan((16, 1025, 1025, 10), (1, 1), 1)
+    assert (plan.cv_tile, plan.tw, plan.th, plan.grid) == (10, 25, 32, (41, 32, 16))
+
+
+@pytest.mark.parametrize("c", [20, 10])
+def test_tiled_algorithm_on_the_1024_student_blurs(c):
+    """The student's up-blur at 1024 at batch 1, float32 and bfloat16, at
+    every lane width it can take: blocks at the corners and the middle of
+    the plan, emulated, give blur4_plain's output there (float32 to 1e-6 *
+    max|x|, bfloat16 bit for bit)."""
+    shape, pad = (1, 1025, 1025, c), (1, 1)
+    x = torch.from_numpy(np.random.RandomState(c).randn(*shape).astype(np.float32))
+    taps = (torch.arange(16, dtype=torch.float64) / 120).float().tolist()
+    for dtype, itemsize in ((torch.float32, 4), (torch.bfloat16, 2)):
+        xd = x.to(dtype)
+        want = blur4_plain(xd, taps, pad)
+        for vec in [v for v in LANES[itemsize] if c % v == 0]:
+            plan = launch_plan(shape, pad, vec, itemsize=itemsize)
+            gx, gy, _ = plan.grid
+            blocks = [(0, 0), (gx - 1, 0), (gx // 2, gy // 2), (0, gy - 1), (gx - 1, gy - 1)]
+            got, stores = _emulate(xd.float(), taps, plan, blocks)
+            for bx, by in blocks:
+                rows, cols, chans = plan.tile(bx, by)
+                tile = (slice(None), slice(rows.start, rows.stop), slice(cols.start, cols.stop),
+                        slice(chans.start, chans.stop))
+                assert bool((stores[tile[1:]] == 1).all())
+                if dtype == torch.float32:
+                    torch.testing.assert_close(got[tile], want[tile], rtol=0,
+                                               atol=1e-6 * x.abs().max().item())
+                else:
+                    torch.testing.assert_close(got[tile].to(dtype), want[tile], rtol=0, atol=0)

@@ -14,6 +14,7 @@ import torch
 
 from content_aware_gan_compression_tpu.models import (
     GeneratorConfig as JaxGeneratorConfig, generator_init, generator_make_noise)
+from content_aware_gan_compression_tpu.models import stylegan2 as stylegan2_jax
 from content_aware_gan_compression_tpu.utils import analysis as jax_analysis
 from content_aware_gan_compression_tpu.utils import calculators as jax_calc
 from content_aware_gan_compression_tpu.utils.logging import ExperimentLogger as JaxLogger
@@ -90,8 +91,13 @@ def test_log_extractors_match_jax(tmp_path):
                 == jax_analysis.extract_metrics_jsonl(exp, key))
 
 
+# JAX's feature maps jitted once for the four layers (eagerly, every op
+# compiles on its own); channel_activation_image imports it at each call
+_jit_feature_maps = jax.jit(stylegan2_jax.generator_feature_maps, static_argnums=(1,))
+
+
 @pytest.mark.parametrize("layer_id", [0, 1, 4, 7])
-def test_channel_activation_image_matches_jax(layer_id):
+def test_channel_activation_image_matches_jax(layer_id, monkeypatch):
     jcfg = JaxGeneratorConfig(**SHAPES["tiny32"])
     params = _jit_init(generator_init, 0, jcfg)
     rng = np.random.RandomState(1)
@@ -99,6 +105,7 @@ def test_channel_activation_image_matches_jax(layer_id):
         block["noise"]["weight"] = rng.randn(1).astype(np.float32)
     z = rng.randn(2, jcfg.style_dim).astype(np.float32)
     key = jax.random.PRNGKey(4)
+    monkeypatch.setattr(stylegan2_jax, "generator_feature_maps", _jit_feature_maps)
     want = jax_analysis.channel_activation_image(params, jcfg, z, layer_id, rng=key, n_col=3)
     g = Generator(GeneratorConfig(**SHAPES["tiny32"]), device="cpu")
     g.load_state_dict(state_dict_from_jax(params))

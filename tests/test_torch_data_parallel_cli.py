@@ -23,7 +23,7 @@ import torch
 from content_aware_gan_compression_torch import parallel
 from content_aware_gan_compression_torch.data import FFHQDataset, data_loader, open_dataset
 from content_aware_gan_compression_torch.train.__main__ import main as train_main
-from torch_dp_util import fid_streams, sparsity_run, spawn
+from torch_dp_util import fid_streams, fid_streams_and_sparsity_run, sparsity_run, spawn
 from torch_eval_util import inception_tree, write_fid_inception
 from torch_train_util import N_MLP, SIZE, STYLE, train_kw, write_checkpoints
 from torch_train_util import torch_threads  # noqa: F401
@@ -171,14 +171,14 @@ def fid_files(tmp_path_factory):
     return ckpt, inception, stats
 
 
-def test_fid_stream_on_two_ranks_equals_one_process(fid_files, tmp_path):
+def test_fid_stream_on_two_ranks_equals_one_process(fid_files, two_rank_runs):
     """The feature stream at batch 4 (2 rows a rank, gathered) and at batch
     3 (the whole batch on every rank) equals one process's within 1e-4 of
     the largest feature on both ranks; the synchronous, overlapped and CLI
     scores agree with one process's and across ranks."""
     ckpt, inception, stats = fid_files
     one = fid_streams(ckpt, inception, SIZE, STYLE, N_MLP, stats)
-    ranks = spawn(fid_streams, 2, tmp_path, ckpt, inception, SIZE, STYLE, N_MLP, stats)
+    ranks = [r["fid"] for r in two_rank_runs]
     for r in ranks:
         for key in ("features_4", "features_3"):
             want = one[key]
@@ -209,17 +209,31 @@ def train_files(tmp_path_factory, fid_files):
             "inception": inception, "stats": stats}
 
 
-def test_sparsity_prune_event_on_two_ranks(train_files, tmp_path):
+def _sparsity_kw(train_files):
+    return train_kw(ckpt=train_files["student"], teacher=train_files["teacher"],
+                    data_folder=train_files["cache"], batch_size=8, kd_l1_lambda=1.0,
+                    kd_lpips_lambda=0.0, kd_mode="Intermediate", g_reg_freq=2,
+                    val_sample_num=4, val_sample_freq=2, model_save_freq=10000)
+
+
+@pytest.fixture(scope="module")
+def two_rank_runs(fid_files, train_files, tmp_path_factory):
+    """One 2-rank spawn for the FID streams and the sparsity run: each
+    rank's {"fid": fid_streams, "sparsity": sparsity_run}."""
+    ckpt, inception, stats = fid_files
+    d = tmp_path_factory.mktemp("two_rank_runs")
+    return spawn(fid_streams_and_sparsity_run, 2, d,
+                 (ckpt, inception, SIZE, STYLE, N_MLP, stats),
+                 (_sparsity_kw(train_files), SPARSITY_OPTS, str(d / "two"), 3))
+
+
+def test_sparsity_prune_event_on_two_ranks(train_files, two_rank_runs, tmp_path):
     """``SparsityTrainer.run`` over iterations 0-2 with the prune event
     after iteration 2, global batch 8 from a uint8 cache: both ranks cut to
     the one-process run's widths, rank 0 logs its records (the sparse
     penalty over the global batch) and the ranks end bit-equal."""
-    kw = train_kw(ckpt=train_files["student"], teacher=train_files["teacher"],
-                  data_folder=train_files["cache"], batch_size=8, kd_l1_lambda=1.0,
-                  kd_lpips_lambda=0.0, kd_mode="Intermediate", g_reg_freq=2,
-                  val_sample_num=4, val_sample_freq=2, model_save_freq=10000)
-    one = sparsity_run(kw, SPARSITY_OPTS, str(tmp_path / "one"), 3)
-    ranks = spawn(sparsity_run, 2, tmp_path / "two", kw, SPARSITY_OPTS, str(tmp_path / "two"), 3)
+    one = sparsity_run(_sparsity_kw(train_files), SPARSITY_OPTS, str(tmp_path / "one"), 3)
+    ranks = [r["sparsity"] for r in two_rank_runs]
     assert one["net_shape"] != (16, 12, 12, 8, 8, 6)
     assert ranks[0]["net_shape"] == ranks[1]["net_shape"] == one["net_shape"]
     assert ranks[1]["records"] == []

@@ -56,12 +56,13 @@ def state(module):
     return {k: v.detach().clone() for k, v in module.state_dict().items()}
 
 
-def run_trainer(kw, batches, draws, aux=None, onednn=True):
+def run_trainer(kw, batches, draws=None, aux=None, onednn=True):
     """The port's Trainer from ``TrainConfig(**kw)`` stepped through
     ``batches`` (global uint8 batches) with ``draws`` (each iteration's
-    global draws), each rank on its rows. ``aux`` is (LPIPS tree, BiSeNet
-    tree) or None. Returns the metrics averaged over ranks, the running mean
-    path length, and the final weights."""
+    global draws; None: the Trainer's own, from its seeded stream), each
+    rank on its rows. ``aux`` is (LPIPS tree, BiSeNet tree) or None.
+    Returns the metrics averaged over ranks, the running mean path length,
+    and the final weights."""
     from content_aware_gan_compression_torch import train
 
     lp, parse = aux or (None, None)
@@ -70,9 +71,9 @@ def run_trainer(kw, batches, draws, aux=None, onednn=True):
     mpl = torch.zeros(())
     metrics = []
     with torch.backends.mkldnn.flags(enabled=onednn):
-        for it, (batch, d) in enumerate(zip(batches, draws)):
+        for it, (batch, d) in enumerate(zip(batches, draws or [None] * len(batches))):
             local = parallel.shard_rows(torch.from_numpy(np.asarray(batch)))
-            step_draws = {k: shard_draws(v) for k, v in d.items()}
+            step_draws = None if d is None else {k: shard_draws(v) for k, v in d.items()}
             m, mpl = pt.step(it, local, mpl, draws=step_draws)
             keys = sorted(m)
             packed = parallel.mean_over_ranks(torch.stack([m[k].float() for k in keys]))
@@ -124,6 +125,20 @@ def coupled_terms(f64_args, x, groups):
     out = r1_and_path_grads(*f64_args)
     out["stddev"] = {g: stddev_features(x, g, 1) for g in groups}
     return out
+
+
+def coupled_terms_and_trainer(coupled_args, trainer_args):
+    """``coupled_terms(*coupled_args)`` with ``run_trainer(*trainer_args)``
+    under ``"trainer"``: one spawn for both."""
+    out = coupled_terms(*coupled_args)
+    out["trainer"] = run_trainer(*trainer_args)
+    return out
+
+
+def fid_streams_and_sparsity_run(fid_args, sparsity_args):
+    """``fid_streams(*fid_args)`` and ``sparsity_run(*sparsity_args)`` in one
+    spawn: {"fid": ..., "sparsity": ...}."""
+    return {"fid": fid_streams(*fid_args), "sparsity": sparsity_run(*sparsity_args)}
 
 
 def fid_streams(ckpt, inception_file, size, style, n_mlp, stats):

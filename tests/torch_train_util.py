@@ -2,6 +2,12 @@
 discriminator written by the JAX package, and the JAX steps' random draws
 rebuilt from their keys so that both packages see the same draws."""
 
+import dataclasses
+import hashlib
+import os
+import pickle
+import tempfile
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -51,11 +57,71 @@ def train_kw(**kw):
     return base
 
 
+def _sources_digest():
+    """A hash of every source the memo's values come from: this module and
+    the JAX package, so that an edit to either starts a new memo."""
+    import content_aware_gan_compression_tpu as jax_package
+
+    root = os.path.dirname(jax_package.__file__)
+    paths = [__file__] + sorted(
+        os.path.join(d, f) for d, _, files in os.walk(root) for f in files if f.endswith(".py"))
+    h = hashlib.sha256()
+    for path in paths:
+        with open(path, "rb") as f:
+            h.update(os.path.relpath(path, root).encode() + b"\0" + f.read())
+    return h.hexdigest()[:16]
+
+
+# what ``_memo`` computed, shared by every test process of a run (and later
+# runs on the same sources) through the temporary directory: XLA's compile of
+# an init or of the JAX steps' draws takes seconds, and a dozen test modules
+# make the same ones. The name holds jax's version and the sources' hash.
+MEMO_DIR = os.path.join(tempfile.gettempdir(),
+                        f"cagc_test_memo_jax{jax.__version__}_{_sources_digest()}")
+
+
+def _memo(call, compute):
+    """``compute()``, read back from MEMO_DIR when a process made it before
+    for the same ``call`` (a repr of everything it depends on): the draws are
+    deterministic. Each call returns fresh objects."""
+    path = os.path.join(MEMO_DIR, hashlib.sha256(call.encode()).hexdigest()[:32] + ".pkl")
+    if os.path.exists(path):
+        with open(path, "rb") as f:
+            return pickle.load(f)
+    out = compute()
+    os.makedirs(MEMO_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        pickle.dump(out, f)
+    os.replace(tmp, path)  # atomic: a reader sees the whole file or none
+    return out
+
+
 def _jit_init(init, seed, *args, **kw):
     """``init(PRNGKey(seed), *args, **kw)`` as numpy, jitted: the same draws
-    as eagerly, without compiling every op on its own."""
-    tree = jax.jit(lambda key: init(key, *args, **kw))(random.PRNGKey(seed))
-    return jax.tree_util.tree_map(np.asarray, tree)
+    as eagerly, without compiling every op on its own (``_memo``'d)."""
+    def compute():
+        tree = jax.jit(lambda key: init(key, *args, **kw))(random.PRNGKey(seed))
+        return jax.tree_util.tree_map(np.asarray, tree)
+    return _memo(repr(("init", init.__module__, init.__qualname__, seed, args,
+                       sorted(kw.items()))), compute)
+
+
+def record_train_configs(monkeypatch):
+    """The ``TrainConfig``s a CLI makes through the port's ``train``
+    package, in a list that fills as it runs (``monkeypatch`` undoes the
+    patch)."""
+    from content_aware_gan_compression_torch import train
+
+    made = []
+
+    class Recorded(train.TrainConfig):
+        def __post_init__(self):
+            super().__post_init__()
+            made.append(self)
+
+    monkeypatch.setattr(train, "TrainConfig", Recorded)
+    return made
 
 
 def jax_params(g_cfg=G_CFG, t_cfg=T_CFG, d_cfg=D_CFG):
@@ -144,35 +210,51 @@ def _mix(key, cfg, batch, g_cfg=G_CFG):
     return [_t(z) for z in zs], torch.tensor(int(inject_index))
 
 
+# TrainConfig's paths, which differ from run to run and no draw reads
+_PATH_FIELDS = ("data_folder", "ckpt", "teacher")
+
+
+def _draws_call(name, key, cfg, *net_configs):
+    """The memo key of a draw: every field of ``cfg`` but its paths."""
+    fields = sorted((k, v) for k, v in dataclasses.asdict(cfg).items() if k not in _PATH_FIELDS)
+    return repr((name, np.asarray(key).tolist(), fields, *net_configs))
+
+
 def d_draws(key, cfg, g_cfg=G_CFG):
-    """What the JAX d_step draws from its key."""
-    k_mix, k_noise = random.split(key)
-    zs, idx = _mix(k_mix, cfg, cfg.batch_size, g_cfg)
-    return {"z": zs, "inject_index": idx,
-            "noise": [_t(n) for n in generator_make_noise(k_noise, g_cfg, cfg.batch_size)]}
+    """What the JAX d_step draws from its key (``_memo``'d)."""
+    def compute():
+        k_mix, k_noise = random.split(key)
+        zs, idx = _mix(k_mix, cfg, cfg.batch_size, g_cfg)
+        return {"z": zs, "inject_index": idx,
+                "noise": [_t(n) for n in generator_make_noise(k_noise, g_cfg, cfg.batch_size)]}
+    return _memo(_draws_call("d", key, cfg, g_cfg), compute)
 
 
 def g_draws(key, cfg, g_cfg=G_CFG, t_cfg=T_CFG):
-    """What the JAX g_step draws from its key."""
-    k_mix, k_noise, k_tnoise = random.split(key, 3)
-    zs, idx = _mix(k_mix, cfg, cfg.batch_size, g_cfg)
-    return {"z": zs, "inject_index": idx,
-            "noise": [_t(n) for n in generator_make_noise(k_noise, g_cfg, cfg.batch_size)],
-            "teacher_noise": [_t(n) for n in generator_make_noise(k_tnoise, t_cfg,
-                                                                   cfg.batch_size)]}
+    """What the JAX g_step draws from its key (``_memo``'d)."""
+    def compute():
+        k_mix, k_noise, k_tnoise = random.split(key, 3)
+        zs, idx = _mix(k_mix, cfg, cfg.batch_size, g_cfg)
+        return {"z": zs, "inject_index": idx,
+                "noise": [_t(n) for n in generator_make_noise(k_noise, g_cfg, cfg.batch_size)],
+                "teacher_noise": [_t(n) for n in generator_make_noise(k_tnoise, t_cfg,
+                                                                       cfg.batch_size)]}
+    return _memo(_draws_call("g", key, cfg, g_cfg, t_cfg), compute)
 
 
 def g_reg_draws(key, cfg, g_cfg=G_CFG):
-    """What the JAX g_reg_step draws from its key, y unscaled."""
-    batch = max(1, cfg.batch_size // cfg.path_reg_batch_shrink)
-    k_mix, k_noise, k_ppl = random.split(key, 3)
-    k_z, k_p, k_i = random.split(k_mix, 3)
-    z = random.normal(k_z, (2, batch, cfg.latent))
-    do_mix = random.uniform(k_p) < cfg.noise_mixing
-    idx = jnp.where(do_mix, random.randint(k_i, (), 1, g_cfg.n_latent), g_cfg.n_latent)
-    return {"z": [_t(z[0]), _t(z[1])], "inject_index": torch.tensor(int(idx)),
-            "noise": [_t(n) for n in generator_make_noise(k_noise, g_cfg, batch)],
-            "ppl_noise": _t(random.normal(k_ppl, (batch, g_cfg.size, g_cfg.size, 3)))}
+    """What the JAX g_reg_step draws from its key, y unscaled (``_memo``'d)."""
+    def compute():
+        batch = max(1, cfg.batch_size // cfg.path_reg_batch_shrink)
+        k_mix, k_noise, k_ppl = random.split(key, 3)
+        k_z, k_p, k_i = random.split(k_mix, 3)
+        z = random.normal(k_z, (2, batch, cfg.latent))
+        do_mix = random.uniform(k_p) < cfg.noise_mixing
+        idx = jnp.where(do_mix, random.randint(k_i, (), 1, g_cfg.n_latent), g_cfg.n_latent)
+        return {"z": [_t(z[0]), _t(z[1])], "inject_index": torch.tensor(int(idx)),
+                "noise": [_t(n) for n in generator_make_noise(k_noise, g_cfg, batch)],
+                "ppl_noise": _t(random.normal(k_ppl, (batch, g_cfg.size, g_cfg.size, 3)))}
+    return _memo(_draws_call("g_reg", key, cfg, g_cfg), compute)
 
 
 def trainer_draws(jax_trainer, iter_idx):
