@@ -10,11 +10,12 @@ Phases, each of which exits non-zero on failure:
      batch of 64 and at pruning's scoring batch of 10, and at ragged shapes
      (blur4 also at every up-blur of the 11x student at batch 16, path batch
      8 and batch 10, at the scoring backward's blurs of the gradient, and on
-     a view that is not 16-byte aligned); the same for masked_scale (the
-     epilogue's backward) at every epilogue shape of the 11x student at
-     batch 16 and path batch 8 and of the full-width generator at batch 10;
-     and all three at the projector's shapes, the full-width generator's at
-     batch 1;
+     a view that is not 16-byte aligned); the epilogue and masked_scale (the
+     epilogue's backward) also at every epilogue shape of the 11x student at
+     batch 16 and path batch 8, every epilogue launch with the 16-byte body
+     whatever C is, masked_scale also at the full-width generator's at
+     batch 10; and all three at the projector's shapes, the full-width
+     generator's at batch 1;
   3. drive the generate path (mean latent, truncation 0.5, batch 16) of the
      full-width 256px generator, weights drawn from seed 0, and check that it
      launched blur4 6 times, all with float4 lanes, and the fused epilogue
@@ -39,8 +40,8 @@ Phases, each of which exits non-zero on failure:
      full-width seeded LPIPS-VGG16); check every loss is finite, the KD
      terms are > 0, the mask keeps a share of the teacher's pixels strictly
      inside (0, 1), and each phase launched each kernel, forward and
-     backward, as often as the shapes require (train_phase_launches): the
-     aux nets launch none;
+     backward, as often as the shapes require (train_phase_launches), every
+     epilogue launch with the 16-byte body: the aux nets launch none;
   7. one iteration at 64px, batch 4, TF32 off, on the card (cuDNN's
      deterministic algorithms) and on the CPU, each against the CPU in
      float64, for both objectives (full_kd with width-scaled aux nets, every
@@ -54,8 +55,10 @@ Phases, each of which exits non-zero on failure:
      --opt_state_dtype bfloat16``;
   9. time the kernels against their bounds, their plain versions and one
      PyTorch library call each (blur4 at the generator's, the
-     discriminator's and the student's largest shapes), the generator's
-     images/s, the training iterations/s over one cadence window of 16
+     discriminator's and the student's largest shapes; the epilogue and
+     masked_scale in float32 and bfloat16 at the student's largest shapes at
+     256px and 1024px, C = 39, 77, 154, 20, 10: ``fused_pair_times``), the
+     generator's images/s, the training iterations/s over one cadence window of 16
      iterations with the full objective and over its first 8 with KD-L1
      (PyTorch's defaults), with peak memory and where the device time goes,
      and LPIPS and the parse alone at the G step's shapes;
@@ -173,7 +176,7 @@ Phases, each of which exits non-zero on failure:
      card's images, card vs CPU, to 1e-3).
 bfloat16, between phases 5 and 8: ``bf16_kernels_vs_plain`` (5b: the
 three kernels in bfloat16 against their plain versions, forward bit for bit
-at the generator's, the student's and D's shapes, backward and double
+at the generator's, the student's (batch 16 and 8) and D's shapes, backward and double
 backward to 2^-7 of the largest value, and their times against the bfloat16
 bytes bound), ``train_bf16_vs_float64`` (7b: phase 7's check of full_kd in
 bfloat16, card <= 2 x CPU + 1e-3, against phase 7's float64 run, kept when
@@ -371,17 +374,19 @@ def train_phase_launches(log_size, remat=False, student_vector=0):
     checkpointed blocks) the backward replays each checkpointed forward:
     D's 2k blurs once per D backward and twice for R1 (its gradient, then
     the gradient's backward), the student's resolution blocks (k up-blurs,
-    2k epilogues; conv1 stays outside) once in g and twice in g_reg. PERF.md
-    derives each entry."""
+    2k epilogues; conv1 stays outside) once in g and twice in g_reg. Every
+    epilogue launch takes the 16-byte body (``fused_noise_bias_lrelu_vector``):
+    its lanes run over the flat tensor whatever C is. PERF.md derives each
+    entry."""
     k, e, sv = log_size - 2, 2 * log_size - 3, student_vector
     r = int(remat)
     zero = {"blur4": 0, "blur4_backward": 0, "blur4_vector": 0, "fused_noise_bias_lrelu": 0,
-            "masked_scale": 0}
+            "fused_noise_bias_lrelu_vector": 0, "masked_scale": 0}
     # blur4_vector: the launches with 16-byte lanes, forward and backward.
     # The teacher's and D's widths are multiples of 8; the 11x student's
     # (154, 77, 39, and 20 and 10 at 1024px) mostly are not, so most of its
     # blurs take narrower lanes.
-    return {
+    phases = {
         # student forward without grad; D forward on fake and on real, and back
         "d": {**zero, "blur4": k + 4 * k + r * 4 * k, "blur4_backward": 4 * k,
               "blur4_vector": 8 * k + sv + r * 4 * k, "fused_noise_bias_lrelu": e},
@@ -400,6 +405,9 @@ def train_phase_launches(log_size, remat=False, student_vector=0):
                   "fused_noise_bias_lrelu": e + r * 4 * k, "masked_scale": 3 * e},
         "ema": zero,
     }
+    for c in phases.values():
+        c["fused_noise_bias_lrelu_vector"] = c["fused_noise_bias_lrelu"]
+    return phases
 
 
 def prune_launches(log_size, n_batch):
@@ -479,8 +487,9 @@ def hold_forward(blur_cases, fused_cases, ms_shapes, rng):
     from ``rng``: blur4 over (shape, pad, gain, misaligned view) cases to
     1e-5 of max|x|, with one launch per case and float4 lanes where C is a
     multiple of 4 and the view aligned; the epilogue over (shape, noise
-    batch) cases and masked_scale over shapes, each to 1e-6 of the plain
-    version's largest value. Returns the largest absolute error of each."""
+    batch) cases, each launch with the 16-byte body whatever C is, and
+    masked_scale over shapes, each to 1e-6 of the plain version's largest
+    value. Returns the largest absolute error of each."""
     from content_aware_gan_compression_torch.ops import make_kernel
     from content_aware_gan_compression_torch.ops.cuda import (
         blur4, blur4_plain, correlation_taps, counts, fused_noise_bias_lrelu,
@@ -509,6 +518,7 @@ def hold_forward(blur_cases, fused_cases, ms_shapes, rng):
              "of them float4")
 
     fused_err = 0.0
+    before = counts()
     for shape, noise_batch in fused_cases:
         x = torch.randn(shape, generator=rng, device=dev)
         noise = torch.randn((noise_batch, *shape[1:3], 1), generator=rng, device=dev)
@@ -521,6 +531,12 @@ def hold_forward(blur_cases, fused_cases, ms_shapes, rng):
         if not err <= tol:
             fail(f"fused_noise_bias_lrelu {shape}: max_abs_err {err} > tol {tol}")
         fused_err = max(fused_err, err)
+    after = counts()
+    launched = {k: after[k] - before[k] for k in ("fused_noise_bias_lrelu",
+                                                    "fused_noise_bias_lrelu_vector")}
+    if set(launched.values()) != {len(fused_cases)}:
+        fail(f"fused_noise_bias_lrelu launched {launched}, want {len(fused_cases)}, all with "
+             "the 16-byte body")
 
     ms_err = 0.0
     for shape in ms_shapes:
@@ -1476,7 +1492,8 @@ def sparsity_phases(g, dev, card, work):
     path_s = time.time() - t0
     logger.close()
     new_shape = tuple(trainer.g.config.net_shape)
-    keys = ("blur4", "blur4_backward", "blur4_vector", "fused_noise_bias_lrelu", "masked_scale")
+    keys = ("blur4", "blur4_backward", "blur4_vector", "fused_noise_bias_lrelu",
+            "fused_noise_bias_lrelu_vector", "masked_scale")
     want_before = sparse_phase_launches(log_size, full_shape)
     want_after = sparse_phase_launches(log_size, new_shape)
     names = [n for n, _ in phases]
@@ -1487,7 +1504,8 @@ def sparsity_phases(g, dev, card, work):
         got = {k: c[k] for k in keys}
         if name == "sample":  # 9 samples of g_ema at full width
             want = {**dict.fromkeys(keys, 0), "blur4": log_size - 2,
-                    "blur4_vector": log_size - 2, "fused_noise_bias_lrelu": 2 * log_size - 3}
+                    "blur4_vector": log_size - 2, "fused_noise_bias_lrelu": 2 * log_size - 3,
+                    "fused_noise_bias_lrelu_vector": 2 * log_size - 3}
         elif name == "prune":  # l1-style scores the modulations only
             want = dict.fromkeys(keys, 0)
         else:
@@ -2036,9 +2054,10 @@ def hold_bf16(blur_cases, fused_cases, ms_shapes, bw_blur_cases, epilogue_cases,
         if got.dtype != bf or err != 0.0:
             fail(f"bf16 masked_scale {shape}: max_abs_err {err}, want bit for bit")
     c = counts()
-    if (c["fused_noise_bias_lrelu_bf16"], c["masked_scale_bf16"]) != (len(fused_cases),
-                                                                      len(ms_shapes)):
-        fail(f"bf16 epilogue / masked_scale launches {c}")
+    if (c["fused_noise_bias_lrelu_bf16"], c["fused_noise_bias_lrelu_vector_bf16"],
+            c["masked_scale_bf16"]) != (len(fused_cases), len(fused_cases), len(ms_shapes)):
+        fail(f"bf16 epilogue / masked_scale launches {c}, want every epilogue with the "
+             "16-byte body")
 
     k_asym = torch.arange(16, dtype=torch.float32).reshape(4, 4) / 120
     bw = {"blur4": 0.0, "epilogue": 0.0, "epilogue_vs_autograd_of_plain": 0.0}
@@ -2126,6 +2145,58 @@ def bf16_times(rng, blur_shape, fused_shape, ms_shape):
     for t in times.values():
         t["bound_share"] = t["bound_ms"] / t["ms"]
     return times
+
+
+def student_pair_shapes():
+    """The 11x student's largest epilogue shapes at batch 16: C = 39, 77,
+    154 at 256px and C = 20, 10 at 1024px (widths no 16-byte lane divides)."""
+    s256 = student_epilogue_shapes(BATCH)
+    s1024 = student_epilogue_shapes(BATCH, net_shapes_1024()[1])
+    return [s256[-1], s256[-3], s256[-5], s1024[-3], s1024[-1]]
+
+
+def fused_pair_times(rng):
+    """The epilogue and masked_scale in float32 and bfloat16 at
+    ``student_pair_shapes``: ms against the bytes bound, the plain version
+    and, for masked_scale, aten.leaky_relu_backward. Returns {kernel name
+    (``_bf16`` for bfloat16): [rows]}."""
+    from content_aware_gan_compression_torch.bench_fused_act import (
+        epilogue_bound, masked_bound)
+    from content_aware_gan_compression_torch.bench_blur4 import time_ms
+    from content_aware_gan_compression_torch.ops.cuda import (
+        fused_noise_bias_lrelu, fused_noise_bias_lrelu_plain, masked_scale, masked_scale_plain)
+
+    dev = rng.device
+    out = {}
+    for dtype, suffix in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+        fused, ms = out.setdefault(f"fused_noise_bias_lrelu{suffix}", []), out.setdefault(
+            f"masked_scale{suffix}", [])
+        for shape in student_pair_shapes():
+            x = torch.randn(shape, generator=rng, device=dev).to(dtype)
+            noise = torch.randn((*shape[:3], 1), generator=rng, device=dev).to(dtype)
+            bias = (0.5 * torch.randn(shape[3], generator=rng, device=dev)).to(dtype)
+            nw = torch.tensor([0.7], device=dev).to(dtype)
+            negatives = int((fused_noise_bias_lrelu_plain(x, noise, bias, nw) < 0).sum().item())
+            b_ms, by = epilogue_bound(x, noise, shape[3], negatives)
+            fused.append({
+                "shape": list(shape), "ms": time_ms(lambda: fused_noise_bias_lrelu(x, noise, bias,
+                                                                                   nw)),
+                "plain_ms": time_ms(lambda: fused_noise_bias_lrelu_plain(x, noise, bias, nw),
+                                    iters=5),
+                "bound_ms": b_ms, "bound_by": by, "library_ms": None})
+            g_in, o = x, torch.randn(shape, generator=rng, device=dev).to(dtype)
+            b_ms, by = masked_bound(o, int((o < 0).sum().item()))
+            ms.append({
+                "shape": list(shape), "ms": time_ms(lambda: masked_scale(g_in, o)),
+                "plain_ms": time_ms(lambda: masked_scale_plain(g_in, o), iters=5),
+                "bound_ms": b_ms, "bound_by": by,
+                "library_ms": time_ms(lambda: torch.ops.aten.leaky_relu_backward(g_in, o, 0.2,
+                                                                                  True))})
+            del x, noise, g_in, o
+        for row in fused + ms:
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+    torch.cuda.empty_cache()
+    return out
 
 
 @contextlib.contextmanager
@@ -2784,11 +2855,13 @@ def data_phases(dev, card, work, bench_line):
         cli_s = time.time() - t0
     finally:
         train_loop.Trainer.run = run
-    keys = ("blur4", "blur4_backward", "blur4_vector", "fused_noise_bias_lrelu", "masked_scale")
+    keys = ("blur4", "blur4_backward", "blur4_vector", "fused_noise_bias_lrelu",
+            "fused_noise_bias_lrelu_vector", "masked_scale")
     k, e = int(np.log2(SIZE)) - 2, 2 * int(np.log2(SIZE)) - 3
     bad, cli_launches = [], dict.fromkeys(keys, 0)
     for name, c in phases:
-        want = ({**dict.fromkeys(keys, 0), "blur4": k, "fused_noise_bias_lrelu": e}
+        want = ({**dict.fromkeys(keys, 0), "blur4": k, "fused_noise_bias_lrelu": e,
+                 "fused_noise_bias_lrelu_vector": e}
                 if name == "sample" else want_phase[name])
         if {kk: c[kk] for kk in keys} != want:
             bad.append((name, {kk: c[kk] for kk in keys}, want))
@@ -3528,8 +3601,10 @@ def main():
     # the projector's: batch 1 at full width
     one_blur_shapes, one_fused_shapes = generator_layer_shapes(1)
     blur_cases += [(s, (1, 1), 4.0, False) for s in one_blur_shapes]
+    # the epilogue also at the student's training shapes (C = 154, 77, 39)
     fused_cases = [(s, s[0]) for s in fused_shapes + eval_fused_shapes + prune_fused_shapes
-                   + student_epilogue_shapes(PRUNE_BATCH) + one_fused_shapes] + [
+                   + student_epilogue_shapes(PRUNE_BATCH) + one_fused_shapes
+                   + student_epilogue_shapes(BATCH) + student_epilogue_shapes(PATH_BATCH)] + [
         ((2, 5, 7, 3), 2), ((2, 6, 6, 130), 1), ((16, 8, 8, 512), 1)]
     # the student's training shapes, the full-width scoring batch's and the
     # projector's
@@ -3649,7 +3724,8 @@ def main():
     bf16_blur_cases = [(s, (1, 1), 4.0, False) for s in blur_shapes + student_blur_shapes(BATCH)] \
         + [(shape, pad, 1.0, False) for shape, pad in discriminator_blur_cases()] \
         + [((BATCH, 129, 129, 154), (1, 1), 4.0, True)]
-    bf16_fused_cases = [(s, s[0]) for s in fused_shapes + student_epilogue_shapes(BATCH)]
+    bf16_fused_cases = [(s, s[0]) for s in fused_shapes + student_epilogue_shapes(BATCH)
+                        + student_epilogue_shapes(PATH_BATCH)]
     bf16_bw_blur = [(s, (1, 1), 4.0, False) for s in student_blur_shapes(BATCH)] + [
         (shape, pad, 1.0, False) for shape, pad in discriminator_blur_cases()] + [
         ((PATH_BATCH, 129, 129, 77), (2, 2), 1.0, True)]
@@ -3890,6 +3966,12 @@ def main():
     # one ATen pass over the same bytes, without the sqrt(2) (and a > 0 mask)
     ms_lib_ms = time_ms(lambda: torch.ops.aten.leaky_relu_backward(g_in, out, 0.2, True))
     del g_in, out
+    # the pair at the student's widths, both types
+    pair_times = fused_pair_times(rng)
+    detail("fused_pair_times", card=card, **pair_times,
+           note="median ms of 20 launches, CUDA events; bound: the bytes each input read once "
+                "and each output written once at 3.35 TB/s; library: "
+                "aten.leaky_relu_backward for masked_scale, none for the epilogue")
 
     # -- training rate over one cadence window: iterations 16-31 --------------
     # full_kd over the whole window; KD-L1, for the cost of the full
@@ -4008,10 +4090,12 @@ def main():
          "launches_fid": eval_launches["fid"]["fused_noise_bias_lrelu"],
          "launches_ppl": eval_launches["ppl"]["fused_noise_bias_lrelu"],
          "launches_prune": prune_counts["fused_noise_bias_lrelu"],
+         "vector_launches": full_launches["fused_noise_bias_lrelu_vector"],
          **new_paths("fused_noise_bias_lrelu"), "max_abs_err": fused_err,
          "max_rel_err_backward": bw_fused_err,
          "ms": fused_ms, "plain_ms": fused_plain_ms, "bound_ms": fused_bound,
-         "bound_by": fused_by, "library_ms": None, "shape": list(f_shape)},
+         "bound_by": fused_by, "library_ms": None, "shape": list(f_shape),
+         "shapes": pair_times["fused_noise_bias_lrelu"]},
         {"name": "masked_scale", "route": "cuda",
          "source": "content_aware_gan_compression_torch/csrc/masked_scale.cu",
          "replaces": "content_aware_gan_compression_tpu/ops/pallas/fused_act_pallas.py:73",
@@ -4023,7 +4107,7 @@ def main():
          "max_abs_err": ms_err, "ms": ms_ms,
          "plain_ms": ms_plain_ms, "bound_ms": ms_bound, "bound_by": ms_by,
          "library_ms": ms_lib_ms, "library": "aten.leaky_relu_backward (no sqrt(2), mask > 0)",
-         "shape": list(m_shape)},
+         "shape": list(m_shape), "shapes": pair_times["masked_scale"]},
     ]
     # the bfloat16 forms: launches from the bfloat16 retraining path
     # (train_rate_bf16, iterations 0-4), errors and times from
@@ -4038,7 +4122,11 @@ def main():
             "launches": bf16_launches["fused_noise_bias_lrelu_bf16"],
             "max_rel_err_backward": bf16_bw["epilogue"],
             "max_rel_err_backward_vs_autograd_of_plain": bf16_bw["epilogue_vs_autograd_of_plain"]},
-        "masked_scale": {"launches": bf16_launches["masked_scale_bf16"]}}
+        "masked_scale": {"launches": bf16_launches["masked_scale_bf16"],
+                         "shapes": pair_times["masked_scale_bf16"]}}
+    bf16_entry["fused_noise_bias_lrelu"]["shapes"] = pair_times["fused_noise_bias_lrelu_bf16"]
+    bf16_entry["fused_noise_bias_lrelu"]["vector_launches"] = \
+        bf16_launches["fused_noise_bias_lrelu_vector_bf16"]
     # the data-parallel paths: each rank's launches on 2 gloo ranks (64px,
     # float32) and the NCCL world-size-1 run's (256px, bfloat16)
     for entry in kernels:

@@ -67,13 +67,17 @@ def blur4_bound(shape, pad, itemsize=4):
                  2 * b * c * in_bounds_taps(h, ho, pad[0]) * in_bounds_taps(w, wo, pad[0]))
 
 
-def build_sources(sources: dict[str, Path]) -> dict[str, tuple[ctypes.CDLL, str]]:
-    """Compile every source at once; {name: (library, ptxas report)}."""
-    out_dir = Path(build.BUILD_DIR).parent / "bench_blur4"
+def build_sources(sources: dict[str, Path], folder: str = "bench_blur4"
+                  ) -> dict[str, tuple[ctypes.CDLL, str]]:
+    """Compile every source at once into ``build/<folder>/``; {name:
+    (library, ptxas report)}. The hash covers the headers beside each
+    source."""
+    out_dir = Path(build.BUILD_DIR).parent / folder
     out_dir.mkdir(parents=True, exist_ok=True)
     running = {}
     for name, src in sources.items():
-        digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+        headers = b"".join(p.read_bytes() for p in sorted(src.parent.glob("*.cuh")))
+        digest = hashlib.sha256(src.read_bytes() + headers).hexdigest()[:16]
         lib = out_dir / f"lib{name}-{digest}.so"
         running[name] = (lib, subprocess.Popen(
             [build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib), str(src)],
@@ -107,11 +111,18 @@ def launcher(lib, with_plan, x, out, taps, pad, plan):
     return call
 
 
+SPIN_CYCLES = 20_000_000  # about 10 ms of the card's clock
+
+
 def time_ms(fn, iters=20, warmup=3):
-    """Median milliseconds of ``fn`` on the card, CUDA events around each call."""
+    """Median milliseconds of ``fn`` on the card, CUDA events around each
+    call. The calls queue behind a spin of ``SPIN_CYCLES`` on the stream, so
+    the host has queued them before the card reaches the first: a kernel
+    shorter than its host launch is timed without the launch's gap."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
     pairs = []
     for _ in range(iters):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)

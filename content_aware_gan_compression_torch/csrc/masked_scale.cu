@@ -5,16 +5,19 @@
 // Replaces the TPU kernel content_aware_gan_compression_tpu/ops/pallas/
 // fused_act_pallas.py:_masked_scale -> _run_bwd / _bwd_kernel. The TPU version
 // tiles [B, H, W, C] by row blocks of one sample; the op is elementwise, so
-// here the tensors are one flat array and the shape does not matter.
+// here the tensors are one flat array and the shape does not matter: the
+// student generator's widths (154, 77, 39, 20, 10) are not multiples of 4, so
+// a float4 along C alone would never run on the training path.
 //
 // Bound on an H100: memory. One compare and two multiplies per element against
 // 12 bytes (g and out read, dx written), so the least time is 12 * n bytes over
-// the memory rate (6 * n in bfloat16). Each thread moves one float4 of each
-// tensor (8 bfloat16 values in bfloat16) over the
-// aligned body of the flat array, whatever C is: the student generator's
-// widths (154, 77, 39) are not multiples of 4, so a float4 along C alone would
-// never run on the training path. The last n % 4 elements take one scalar
-// thread each. Index math is 32-bit while the element count fits in an int.
+// the memory rate (6 * n in bfloat16). Design (csrc/lanes.cuh,
+// ops/cuda/lanes.py:lane_plan): the epilogue's 16-byte lanes, each thread V
+// of them with the loads of all 2V vectors issued before any arithmetic,
+// block size, V and streaming stores from the plan (bench_fused_act --sweep
+// chose them); the last partial lane and a misaligned view move element by
+// element. Index math is 32-bit while n < 2^31. At the training shapes it
+// runs level with aten.leaky_relu_backward, both at 86-93% of the bound.
 // The arithmetic uses round-to-nearest intrinsics in the plain PyTorch
 // expression's order, so the result equals the plain version bit for bit.
 //
@@ -27,74 +30,84 @@
 // epilogue's backward and double backward in bfloat16 round where the plain
 // version's do. ops/cuda/masked_scale.py:masked_scale_plain computes a
 // bfloat16 dx in the same order, so the two agree bit for bit.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "lanes.cuh"
 
 namespace {
 
-__device__ __forceinline__ float masked(float g, float o) {
+// float32: the slope, then the gain
+__device__ __forceinline__ float masked(lanes::F32, float g, float o) {
     const float v = o >= 0.f ? g : __fmul_rn(g, 0.2f);
     return __fmul_rn(v, 1.41421356237309515f);
 }
 
-// the bfloat16 order: the gain, then the slope
-__device__ __forceinline__ float masked_gain_first(float g, float o) {
+// bfloat16: the gain, then the slope
+__device__ __forceinline__ float masked(lanes::BF16, float g, float o) {
     const float v = __fmul_rn(g, 1.41421356237309515f);
     return o >= 0.f ? v : __fmul_rn(v, 0.2f);
 }
 
-__device__ __forceinline__ float lo_bf16(unsigned w) { return __uint_as_float(w << 16); }
-__device__ __forceinline__ float hi_bf16(unsigned w) { return __uint_as_float(w & 0xffff0000u); }
-__device__ __forceinline__ unsigned bf16_bits(float v) {
-    return __bfloat16_as_ushort(__float2bfloat16_rn(v));
-}
-__device__ __forceinline__ unsigned masked_pair(unsigned g, unsigned o) {
-    return bf16_bits(masked_gain_first(lo_bf16(g), lo_bf16(o))) |
-           (bf16_bits(masked_gain_first(hi_bf16(g), hi_bf16(o))) << 16);
-}
-
-// bfloat16: threads [0, n8) take 8 values (16 bytes) i; threads [n8, n8 +
-// tail) take scalar element 8 * n8 + (i - n8).
-template <typename Index>
-__global__ void masked_scale_bf16_kernel(const unsigned short* __restrict__ g,
-                                         const unsigned short* __restrict__ out,
-                                         unsigned short* __restrict__ dx, Index n8,
-                                         Index tail) {
-    const Index i = (Index)blockIdx.x * (Index)blockDim.x + (Index)threadIdx.x;
-    if (i < n8) {
-        const uint4 gv = __ldg(reinterpret_cast<const uint4*>(g) + i);
-        const uint4 ov = __ldg(reinterpret_cast<const uint4*>(out) + i);
-        reinterpret_cast<uint4*>(dx)[i] =
-            make_uint4(masked_pair(gv.x, ov.x), masked_pair(gv.y, ov.y),
-                       masked_pair(gv.z, ov.z), masked_pair(gv.w, ov.w));
-    } else if (i < n8 + tail) {
-        const Index e = 8 * n8 + (i - n8);
-        dx[e] = (unsigned short)bf16_bits(
-            masked_gain_first(lo_bf16(__ldg(g + e)), lo_bf16(__ldg(out + e))));
+template <typename T, typename Index, int V>
+__global__ void __launch_bounds__(lanes::kMaxThreads)
+    masked_scale_kernel(const typename T::Elem* __restrict__ g,
+                        const typename T::Elem* __restrict__ out,
+                        typename T::Elem* __restrict__ dx, Index n, Index n_lanes, int vec,
+                        int streaming) {
+    constexpr int L = T::kLanes;
+    const Index first = (Index)blockIdx.x * (Index)(blockDim.x * V) + threadIdx.x;
+    typename T::Raw gr[V], orr[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+        const Index lane = first + (Index)j * blockDim.x;
+        if (lane < n_lanes) {
+            const Index e = lane * L;
+            gr[j] = T::load(g + e, e + L <= n, (long long)(n - e), vec);
+            orr[j] = T::load(out + e, e + L <= n, (long long)(n - e), vec);
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+        const Index lane = first + (Index)j * blockDim.x;
+        if (lane >= n_lanes) continue;
+        const Index e = lane * L;
+        float r[L];
+#pragma unroll
+        for (int k = 0; k < L; ++k) r[k] = masked(T(), T::get(gr[j], k), T::get(orr[j], k));
+        T::store(dx + e, r, e + L <= n, (long long)(n - e), vec, streaming);
     }
 }
 
-// Threads [0, n4) take float4 i; threads [n4, n4 + tail) take scalar element
-// 4 * n4 + (i - n4).
-template <typename Index>
-__global__ void masked_scale_kernel(const float* __restrict__ g,
-                                    const float* __restrict__ out,
-                                    float* __restrict__ dx, Index n4,
-                                    Index tail) {
-    const Index i = (Index)blockIdx.x * (Index)blockDim.x + (Index)threadIdx.x;
-    if (i < n4) {
-        const float4 gv = __ldg(reinterpret_cast<const float4*>(g) + i);
-        const float4 ov = __ldg(reinterpret_cast<const float4*>(out) + i);
-        float4 r;
-        r.x = masked(gv.x, ov.x);
-        r.y = masked(gv.y, ov.y);
-        r.z = masked(gv.z, ov.z);
-        r.w = masked(gv.w, ov.w);
-        reinterpret_cast<float4*>(dx)[i] = r;
-    } else if (i < n4 + tail) {
-        const Index e = 4 * n4 + (i - n4);
-        dx[e] = masked(__ldg(g + e), __ldg(out + e));
-    }
+template <typename T, typename Index>
+void launch_kernel(int vectors, long long blocks, int threads, cudaStream_t s, const void* g,
+                   const void* out, void* dx, Index n, int vec, int streaming) {
+    using E = typename T::Elem;
+    const Index n_lanes = (n + T::kLanes - 1) / T::kLanes;
+    const dim3 grid((unsigned)blocks);
+#define MS_ARGS (const E*)g, (const E*)out, (E*)dx, n, n_lanes, vec, streaming
+    if (vectors == 1) masked_scale_kernel<T, Index, 1><<<grid, threads, 0, s>>>(MS_ARGS);
+    else if (vectors == 2) masked_scale_kernel<T, Index, 2><<<grid, threads, 0, s>>>(MS_ARGS);
+    else masked_scale_kernel<T, Index, 4><<<grid, threads, 0, s>>>(MS_ARGS);
+#undef MS_ARGS
+}
+
+template <typename T>
+int forward(const void* g, const void* out, void* dx, long long n, int vec, int threads,
+            int vectors, long long blocks, int wide_index, int streaming, int device,
+            void* stream) {
+    if (n <= 0) return (int)cudaSuccess;
+    const int L = T::kLanes;
+    if ((!wide_index && n > 0x7fffffffLL) ||
+        blocks != ((n + L - 1) / L + (long long)threads * vectors - 1) /
+                      ((long long)threads * vectors))
+        return (int)cudaErrorInvalidValue;
+    const cudaStream_t s = (cudaStream_t)stream;
+    return lanes::launch_on(device, threads, vectors, blocks, [&] {
+        if (wide_index)
+            launch_kernel<T, unsigned long long>(vectors, blocks, threads, s, g, out, dx, n, vec,
+                                                 streaming);
+        else
+            launch_kernel<T, unsigned>(vectors, blocks, threads, s, g, out, dx, (unsigned)n, vec,
+                                       streaming);
+    });
 }
 
 }  // namespace
@@ -102,55 +115,26 @@ __global__ void masked_scale_kernel(const float* __restrict__ g,
 extern "C" {
 
 // g, out, dx: n contiguous floats (masked_scale_forward) or bfloat16 values
-// (masked_scale_forward_bf16) each on `device`. vec4 != 0 selects the
-// 16-byte body (g, out and dx 16-byte aligned, checked by the caller);
-// otherwise every element takes the scalar path. Launches on `device` and
-// gives the calling thread its current device back. Returns
-// cudaGetLastError() after the launch.
-static int masked_scale_launch(const void* g, const void* out, void* dx, long long n,
-                               int vec4, int bf16, int device, void* stream) {
-    if (n <= 0) return (int)cudaSuccess;
-    int prev = 0;
-    cudaError_t err = cudaGetDevice(&prev);
-    if (err == cudaSuccess) err = cudaSetDevice(device);
-    if (err != cudaSuccess) return (int)err;
-    const int lanes = bf16 ? 8 : 4;
-    const long long nv = vec4 ? n / lanes : 0;
-    const long long tail = n - lanes * nv;
-    const long long threads_total = nv + tail;
-    const int threads = 256;
-    const unsigned int blocks =
-        (unsigned int)((threads_total + threads - 1) / threads);
-    const cudaStream_t s = (cudaStream_t)stream;
-    const bool small = n < (1LL << 31) - threads;
-    if (bf16 && small) {
-        masked_scale_bf16_kernel<int><<<blocks, threads, 0, s>>>(
-            (const unsigned short*)g, (const unsigned short*)out, (unsigned short*)dx,
-            (int)nv, (int)tail);
-    } else if (bf16) {
-        masked_scale_bf16_kernel<long long><<<blocks, threads, 0, s>>>(
-            (const unsigned short*)g, (const unsigned short*)out, (unsigned short*)dx, nv,
-            tail);
-    } else if (small) {
-        masked_scale_kernel<int><<<blocks, threads, 0, s>>>(
-            (const float*)g, (const float*)out, (float*)dx, (int)nv, (int)tail);
-    } else {
-        masked_scale_kernel<long long><<<blocks, threads, 0, s>>>(
-            (const float*)g, (const float*)out, (float*)dx, nv, tail);
-    }
-    err = cudaGetLastError();
-    cudaSetDevice(prev);
-    return (int)err;
+// (masked_scale_forward_bf16) each on `device`. The rest is
+// ops/cuda/lanes.py:lane_plan's: vec != 0 for 16-byte loads and stores over
+// the full lanes (g, out and dx 16-byte aligned, checked by the caller),
+// threads per block, lanes per thread (1, 2 or 4), blocks, 64-bit offsets
+// (needed from n = 2^31) and streaming stores. Launches on `device` and gives
+// the calling thread its current device back. Returns cudaGetLastError()
+// after the launch, or cudaErrorInvalidValue for a plan the kernel does not
+// take.
+int masked_scale_forward(const void* g, const void* out, void* dx, long long n, int vec,
+                         int threads, int vectors, long long blocks, int wide_index,
+                         int streaming, int device, void* stream) {
+    return forward<lanes::F32>(g, out, dx, n, vec, threads, vectors, blocks, wide_index,
+                               streaming, device, stream);
 }
 
-int masked_scale_forward(const void* g, const void* out, void* dx, long long n,
-                         int vec4, int device, void* stream) {
-    return masked_scale_launch(g, out, dx, n, vec4, 0, device, stream);
-}
-
-int masked_scale_forward_bf16(const void* g, const void* out, void* dx, long long n,
-                              int vec4, int device, void* stream) {
-    return masked_scale_launch(g, out, dx, n, vec4, 1, device, stream);
+int masked_scale_forward_bf16(const void* g, const void* out, void* dx, long long n, int vec,
+                              int threads, int vectors, long long blocks, int wide_index,
+                              int streaming, int device, void* stream) {
+    return forward<lanes::BF16>(g, out, dx, n, vec, threads, vectors, blocks, wide_index,
+                                streaming, device, stream);
 }
 
 const char* masked_scale_error_string(int err) {

@@ -2,9 +2,10 @@
 
 Each source is compiled at first use by ``nvcc`` into its own shared library
 with a plain C interface, for Hopper (``sm_90a``), and loaded with ``ctypes``.
-The library's file name carries a hash of the source and the flags, so an
-edited source is rebuilt and an unchanged one is loaded as it is. Libraries
-go to ``build/cuda/`` beside the package. A failed build raises: there is no
+The library's file name carries a hash of the source, the headers beside it
+(``csrc/*.cuh``) and the flags, so an edited source or header is rebuilt and
+an unchanged one is loaded as it is. Libraries go to ``build/cuda/`` beside
+the package. A failed build raises: there is no
 fallback to another implementation.
 """
 
@@ -39,8 +40,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library for ``csrc/<name>.cu`` lives at its current hash."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
+    """Where the library for ``csrc/<name>.cu`` lives at its current hash:
+    of the source, every header in ``csrc/`` (a source may include any) and
+    the flags."""
+    headers = b"".join(p.name.encode() + p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -26,6 +26,7 @@ import math
 import torch
 
 from . import build
+from .lanes import LANE_BYTES, EpiloguePlan, epilogue_plan
 from .masked_scale import MaskedScaleFn
 
 
@@ -39,12 +40,27 @@ def fused_noise_bias_lrelu_plain(x, noise, bias, noise_weight):
     return torch.where(pre >= 0, pre, pre * 0.2) * math.sqrt(2.0)
 
 
+# the C entry's arguments: x, noise, bias, nw, out; then epilogue_args
+ARGTYPES = [ctypes.c_void_p] * 5 + [
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+    ctypes.c_uint, ctypes.c_uint, ctypes.c_uint, ctypes.c_uint,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+
+def epilogue_args(plan: EpiloguePlan, device_index: int, stream: int) -> list:
+    """The plan's part of the C entry's arguments, after the five pointers."""
+    return [plan.n, plan.c, plan.hw, int(plan.bcast), *plan.c_div, *plan.hw_div, int(plan.vec),
+            plan.path, plan.threads, plan.vectors, plan.blocks, int(plan.wide_index),
+            plan.smem_bytes, int(plan.streaming), device_index, stream]
+
+
 @functools.cache
 def _entry(dtype: torch.dtype):
     lib = build.library("fused_noise_bias_lrelu")
     fn = (lib.fused_noise_bias_lrelu_forward_bf16 if dtype == torch.bfloat16
           else lib.fused_noise_bias_lrelu_forward)
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = ARGTYPES
     fn.restype = ctypes.c_int
     return lib, fn
 
@@ -62,17 +78,20 @@ def _run(x, noise, bias, noise_weight):
             raise TypeError(f"fused_noise_bias_lrelu kernel takes contiguous tensors of one "
                             f"type, float32 or bfloat16, on {x.device}; {name} is {t.dtype} "
                             f"on {t.device}, contiguous={t.is_contiguous()}")
-    b, h, w, c = x.shape
     out = torch.empty_like(x)
-    lanes = 16 // x.element_size()  # 16-byte vectors: 4 float32 or 8 bfloat16
-    vec4 = c % lanes == 0 and all(t.data_ptr() % 16 == 0 for t in (x, bias, out))
+    aligned = x.data_ptr() % LANE_BYTES == 0 and out.data_ptr() % LANE_BYTES == 0
+    plan = epilogue_plan(tuple(x.shape), noise.shape[0], x.element_size(), aligned,
+                         bias_aligned=bias.data_ptr() % LANE_BYTES == 0)
     lib, fn = _entry(x.dtype)
     err = fn(x.data_ptr(), noise.data_ptr(), bias.data_ptr(), noise_weight.data_ptr(),
-             out.data_ptr(), b, h, w, c, noise.shape[0], int(vec4), x.device.index,
-             torch.cuda.current_stream(x.device).cuda_stream)
+             out.data_ptr(), *epilogue_args(plan, x.device.index,
+                                            torch.cuda.current_stream(x.device).cuda_stream))
     build.check(lib, "fused_noise_bias_lrelu", err)
+    bf16 = x.dtype == torch.bfloat16
     fused_noise_bias_lrelu.launches += 1
-    fused_noise_bias_lrelu.bf16_launches += x.dtype == torch.bfloat16
+    fused_noise_bias_lrelu.bf16_launches += bf16
+    fused_noise_bias_lrelu.vector_launches += plan.vector_body
+    fused_noise_bias_lrelu.bf16_vector_launches += plan.vector_body and bf16
     return out
 
 
@@ -123,3 +142,5 @@ def fused_noise_bias_lrelu(x: torch.Tensor, noise: torch.Tensor, bias: torch.Ten
 
 fused_noise_bias_lrelu.launches = 0  # kernel launches since the last reset; the CPU path adds none
 fused_noise_bias_lrelu.bf16_launches = 0  # those on bfloat16 tensors
+fused_noise_bias_lrelu.vector_launches = 0  # launches with a 16-byte body (x, out aligned)
+fused_noise_bias_lrelu.bf16_vector_launches = 0  # those on bfloat16 tensors

@@ -21,6 +21,7 @@ import math
 import torch
 
 from . import build
+from .lanes import LANE_BYTES, LanePlan, lane_plan
 
 
 def masked_scale_plain(g: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
@@ -43,12 +44,22 @@ def contiguous_grad(t: torch.Tensor, owner) -> torch.Tensor:
     return t.contiguous()
 
 
+# the C entry's arguments: g, out, dx; then lane_args
+ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [
+    ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+
+def lane_args(plan: LanePlan, device_index: int, stream: int) -> list:
+    """The plan's part of the C entry's arguments, after the three pointers."""
+    return [plan.n, int(plan.vec), plan.threads, plan.vectors, plan.blocks,
+            int(plan.wide_index), int(plan.streaming), device_index, stream]
+
+
 @functools.cache
 def _entry(dtype: torch.dtype):
     lib = build.library("masked_scale")
     fn = lib.masked_scale_forward_bf16 if dtype == torch.bfloat16 else lib.masked_scale_forward
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_void_p]
+    fn.argtypes = ARGTYPES
     fn.restype = ctypes.c_int
     return lib, fn
 
@@ -69,10 +80,11 @@ def masked_scale(g: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
                             f"float32 or bfloat16, on {out.device}; {name} is {t.dtype} on "
                             f"{t.device}, contiguous={t.is_contiguous()}")
     dx = torch.empty_like(out)
-    vec4 = all(t.data_ptr() % 16 == 0 for t in (g, out, dx))
+    aligned = all(t.data_ptr() % LANE_BYTES == 0 for t in (g, out, dx))
+    plan = lane_plan(out.numel(), out.element_size(), aligned)
     lib, fn = _entry(out.dtype)
-    err = fn(g.data_ptr(), out.data_ptr(), dx.data_ptr(), out.numel(), int(vec4),
-             out.device.index, torch.cuda.current_stream(out.device).cuda_stream)
+    err = fn(g.data_ptr(), out.data_ptr(), dx.data_ptr(),
+             *lane_args(plan, out.device.index, torch.cuda.current_stream(out.device).cuda_stream))
     build.check(lib, "masked_scale", err)
     masked_scale.launches += 1
     masked_scale.bf16_launches += out.dtype == torch.bfloat16

@@ -149,6 +149,8 @@ def _plain_twin(fn_kernel, fn_plain, *args):
     the two sides round only inside the functions held against each other."""
     results = []
     for fn in (fn_kernel, fn_plain):
+        if fn is None:  # one side only
+            continue
         xs = [a.detach().clone().requires_grad_(a.requires_grad) for a in args]
         y = fn(*xs)
         wrt = [x for x in xs if x.requires_grad]
@@ -355,11 +357,11 @@ def plain_routes():
 
 
 def _function_twin(fn, *args):
-    """_plain_twin of ``fn`` with the kernels and of ``fn`` under
-    ``plain_routes``."""
+    """_plain_twin's derivatives of ``fn`` with the kernels and of ``fn``
+    under ``plain_routes``, each run once."""
     with plain_routes():
         plain = _plain_twin(fn, fn, *args)[0]
-    return _plain_twin(fn, fn, *args)[0], plain
+    return _plain_twin(fn, None, *args)[0], plain
 
 
 @pytest.mark.parametrize("shape,noise_batch", [((16, 8, 8, 154), 16), ((8, 32, 32, 39), 1)])
@@ -404,3 +406,86 @@ def test_bf16_generator_launches_only_bf16_kernels(dev):
     assert got.dtype == torch.bfloat16
     torch.testing.assert_close(got.float(), want, rtol=0, atol=0.1 * want.abs().max().item())
 
+
+
+# every width the lanes treat differently: C below, at and above the
+# 16-byte lane (4 float32, 8 bfloat16 values), multiples of it, and the
+# student's
+EVERY_WIDTH = list(range(1, 10)) + [16, 32, 154, 77, 39, 20, 10]
+
+
+def _epilogue_inputs(shape, noise_batch, dtype, gen, offset=0, bias_offset=0):
+    dev = gen.device
+    n = torch.Size(shape).numel()
+    x = torch.randn(n + offset, generator=gen, device=dev).to(dtype)[offset:].view(shape)
+    noise = torch.randn((noise_batch, *shape[1:3], 1), generator=gen, device=dev).to(dtype)
+    bias = torch.randn(shape[3] + bias_offset, generator=gen, device=dev).to(dtype)[bias_offset:]
+    return x, noise, bias, torch.tensor([0.7], device=dev).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", EVERY_WIDTH)
+def test_fused_kernel_at_every_width(dev, c, dtype):
+    """Bit for bit at C = 1-9, multiples of the lane and the student's
+    widths, per-sample and broadcast noise, a partial last lane (3 * 5 * 7 *
+    C elements), a misaligned x (element by element), a misaligned bias (off
+    the aligned path) and a shape past 32 lanes a warp; the aligned launches
+    take the 16-byte body."""
+    gen = torch.Generator(dev).manual_seed(c)
+    for shape, noise_batch, offset, bias_offset in [
+            ((3, 5, 7, c), 3, 0, 0), ((3, 5, 7, c), 1, 0, 0), ((3, 5, 7, c), 3, 1, 0),
+            ((3, 5, 7, c), 3, 0, 1), ((16, 16, 16, c), 1, 0, 0), ((16, 32, 32, c), 16, 0, 0)]:
+        x, noise, bias, nw = _epilogue_inputs(shape, noise_batch, dtype, gen, offset,
+                                              bias_offset)
+        reset_counts()
+        got = fused_noise_bias_lrelu(x, noise, bias, nw)
+        assert counts()["fused_noise_bias_lrelu_vector"] == (offset == 0)
+        torch.testing.assert_close(got, fused_noise_bias_lrelu_plain(x, noise, bias, nw),
+                                   rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", EVERY_WIDTH)
+def test_masked_scale_kernel_at_every_width(dev, c, dtype):
+    gen = torch.Generator(dev).manual_seed(c)
+    for shape, offset in [((3, 5, 7, c), 0), ((3, 5, 7, c), 1), ((16, 32, 32, c), 0)]:
+        n = torch.Size(shape).numel()
+        g = torch.randn(n + offset, generator=gen, device=dev).to(dtype)[offset:].view(shape)
+        out = torch.randn(n + offset, generator=gen, device=dev).to(dtype)[offset:].view(shape)
+        out.view(-1)[:5] = 0.0
+        torch.testing.assert_close(masked_scale(g, out), masked_scale_plain(g, out),
+                                   rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_every_plan_of_the_sweep_equals_plain(dev, dtype):
+    """Each block size, lanes per thread and store kind that
+    ``bench_fused_act --sweep`` tries, on both kernels, through their C
+    entries: the aligned (C % lanes == 0), the wide (C >= lanes) and the
+    narrow lane paths, broadcast noise."""
+    from content_aware_gan_compression_torch.bench_fused_act import SWEEP
+    from content_aware_gan_compression_torch.ops.cuda import epilogue_plan, lane_plan
+    fnbl = importlib.import_module(
+        "content_aware_gan_compression_torch.ops.cuda.fused_noise_bias_lrelu")
+    ms = importlib.import_module("content_aware_gan_compression_torch.ops.cuda.masked_scale")
+    gen = torch.Generator(dev).manual_seed(3)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for shape in [(5, 13, 11, 16), (5, 13, 11, 39), (5, 13, 11, 3)]:
+        x, noise, bias, nw = _epilogue_inputs(shape, 1, dtype, gen)
+        want = fused_noise_bias_lrelu_plain(x, noise, bias, nw)
+        o = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        want_ms = masked_scale_plain(x, o)
+        for threads, vectors, streaming in SWEEP:
+            out = torch.full_like(x, float("nan"))
+            plan = epilogue_plan(shape, 1, x.element_size(), True, threads, vectors, streaming)
+            lib, fn = fnbl._entry(dtype)
+            assert fn(x.data_ptr(), noise.data_ptr(), bias.data_ptr(), nw.data_ptr(),
+                      out.data_ptr(), *fnbl.epilogue_args(plan, dev.index or 0, stream)) == 0
+            dx = torch.full_like(x, float("nan"))
+            plan = lane_plan(x.numel(), x.element_size(), True, threads, vectors, streaming)
+            lib, fn = ms._entry(dtype)
+            assert fn(x.data_ptr(), o.data_ptr(), dx.data_ptr(),
+                      *ms.lane_args(plan, dev.index or 0, stream)) == 0
+            torch.cuda.synchronize()
+            torch.testing.assert_close(out, want, rtol=0, atol=0)
+            torch.testing.assert_close(dx, want_ms, rtol=0, atol=0)
