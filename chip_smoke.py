@@ -77,8 +77,8 @@ Phases, each of which exits non-zero on failure:
      4 PPL distances;
  13. the evaluation CLIs on seeded files (calc_inception on a uint8 cache,
      get_fid on its pickle, get_ppl on LPIPS files in the reference's
-     schemas) and the train CLI with --inception_ckpt and --real_stats, whose
-     overlapped in-loop FID logs a score for each model_save_freq;
+     schemas); the train CLI with --inception_ckpt and --real_stats runs in
+     phase 25;
  14. time the feature stream (samples/s; generator and Inception ms per
      batch), Inception alone (TFLOP/s from its convolutions' shapes) and PPL
      (pairs/s), with TF32 off and under the defaults, and peak memory of a
@@ -99,8 +99,8 @@ Phases, each of which exits non-zero on failure:
      CPU, each against float64 (cuDNN deterministic, TF32 off);
  18. ``python -m content_aware_gan_compression_torch.prune`` on a seeded
      .npz (content-aware with a seeded BiSeNet file, and l1-out; 40 samples),
-     its .npz and .pth, then the train CLI for 2 iterations on the pruned
-     checkpoint with the full-width one as the teacher.
+     its .npz and .pth (phase 25 trains a pruned checkpoint with the train
+     CLI).
  19. drive the sparsity baseline at 256px (train_sparsity's defaults where
      they matter: eta 1e-5, Global_Number 588, l1-style, the VGG percept
      term at 3 with a full-width seeded LPIPS, KD-L1 0, Intermediate; batch
@@ -133,9 +133,22 @@ Phases, each of which exits non-zero on failure:
  24. ``python -m content_aware_gan_compression_torch.get_projected_image`` on
      a PNG written by ``write_png`` (read without Pillow where Pillow is
      absent): the printed scores and the side-by-side PNG.
- 25. ``python -m content_aware_gan_compression_torch.bench`` with its
-     defaults (bfloat16, full_kd) over 32 iterations after 9: its one JSON
-     line.
+ 25. ``e2e_checks``: the port's end-to-end tools at cut settings.
+     ``python -m content_aware_gan_compression_torch.tools.e2e_validation
+     --in_process`` (one interpreter for its train runs) at 256px, batch 16,
+     bfloat16 full_kd: the train CLI for 48 iterations from a folder of 64
+     seeded 256px PNGs and from a 256px uint8 cache, one overlapped in-loop
+     FID of 256 samples (a width-1/8 Inception) at iteration 24, the it/s of
+     iterations 16-47 from each run's metrics.jsonl (over all their time,
+     and the median 16-iteration window), then ``bench`` in an interpreter
+     of its own with its defaults (bfloat16, full_kd) over 32 iterations
+     after 9, whose one JSON line is the smoke's bench line; ``tools.fid_descent_validation``
+     in this process, its CLIs in process, at 64px (256 teacher samples,
+     calc_inception, prune 0.7, get_fid of the teacher and the pruned
+     student, 40 iterations with the FID every 20 over 256 samples, get_ppl
+     before and after), with each kernel's launches counted. Every step
+     exits cleanly and every rate, FID and PPL is finite and positive; the
+     descent is reported (held in the tool's full run only).
  26. the training data path on the card's host: 64 seeded PNGs at 512px and
      64 at 256px (``write_png``); the native batch transform's build seconds
      and its images/s at 512 -> 256, batch 16, with the host's threads,
@@ -200,7 +213,10 @@ distance from it (one process at batch 8, each half at batch 4) + 1e-4,
 the ranks' gradients bit-equal, each rank's launches per phase) and
 ``dp_nccl_cards`` (8d: with 2 cards, the train CLI under ``torchrun
 --nproc_per_node=2`` at 256px, bfloat16 full_kd, global batch 16, it/s and
-images/s; with one card it prints ``dp_nccl_cards: not run, 1 card``).
+images/s from rank 0's pass-boundary times; with one card it prints
+``dp_nccl_cards: not run, 1 card(s)``). ``python3 chip_smoke.py --dp_cards
+1,2,4`` runs that phase alone at each card count for 48 iterations (on a
+machine with that many cards) and nothing else.
 The checks against the host's CPU (phases 7 and 7b, 12's CPU side, 17
 and 21) run in a thread beside the phase after them (8, 13, 18, 22), which
 drives its CLIs, and report after it; that phase's seconds then include
@@ -211,6 +227,7 @@ chiprun_out/chip_smoke_details.jsonl. Needs a CUDA card; without one it
 exits non-zero and prints no result.
 """
 
+import argparse
 import concurrent.futures
 import contextlib
 import copy
@@ -226,6 +243,10 @@ import warnings
 
 import numpy as np
 import torch
+
+from content_aware_gan_compression_torch.tools.fixtures import (
+    bisenet_file_state, mask_share, pick_parser, seeded_lpips, write_aux_files, write_pngs,
+    write_train_checkpoints)
 
 START = time.time()
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -616,25 +637,6 @@ def hold_backward(blur_cases, epilogue_cases, rng):
     return blur_err, fused_err
 
 
-def write_train_checkpoints(work, size):
-    """Seeded student.npz {'g', 'g_ema'} (the int(c*0.7) rule) and
-    teacher.npz {'g_ema'} (full width) at ``size``."""
-    from content_aware_gan_compression_torch.models import (
-        Generator, GeneratorConfig, default_net_shape)
-    from content_aware_gan_compression_torch.utils import save_checkpoint
-
-    student_shape = tuple(c - int(c * 0.7) for c in default_net_shape(size))
-    student = Generator(GeneratorConfig(size=size, net_shape=student_shape), device="cpu",
-                        generator=torch.Generator().manual_seed(0)).state_dict()
-    teacher = Generator(GeneratorConfig(size=size), device="cpu",
-                        generator=torch.Generator().manual_seed(1)).state_dict()
-    paths = (os.path.join(work, f"student{size}.npz"), os.path.join(work, f"teacher{size}.npz"))
-    save_checkpoint(paths[0], {"g": student, "g_ema": student},
-                    metadata={"size": size, "seed": 0})
-    save_checkpoint(paths[1], {"g_ema": teacher}, metadata={"size": size, "seed": 1})
-    return paths
-
-
 def train_config(size, batch, student, teacher, objective, **kw):
     """The retraining configuration: TrainConfig defaults, the reference's
     objective (``full_kd``: content_aware_KD, kd_l1_lambda = kd_lpips_lambda
@@ -648,42 +650,6 @@ def train_config(size, batch, student, teacher, objective, **kw):
                        teacher=teacher, **kw)
 
 
-LPIPS_SEED = 5
-
-
-def seeded_lpips(width_scale=1.0):
-    from content_aware_gan_compression_torch.models import LPIPS, vgg16_widths
-
-    return LPIPS(vgg16_widths(width_scale), device="cpu",
-                 generator=torch.Generator().manual_seed(LPIPS_SEED))
-
-
-def mask_share(parser, img_nhwc):
-    """The share of ``img_nhwc``'s pixels the content-aware mask keeps, with
-    ``parser``'s parse."""
-    from content_aware_gan_compression_torch.models import make_parse_fn
-    from content_aware_gan_compression_torch.pruning import batch_img_parsing, get_masked_tensor
-
-    parse = batch_img_parsing(img_nhwc, make_parse_fn(parser, "NHWC"), "NHWC")
-    return get_masked_tensor(torch.ones_like(img_nhwc[..., :1]), parse, "NHWC").mean().item()
-
-
-def pick_parser(img_nhwc, width_scale=1.0, seeds=64):
-    """A seeded BiSeNet whose mask keeps between 2% and 98% of these
-    images' pixels: the first seed that does. A random parser mostly parses
-    every pixel as one class, which makes the mask all or nothing."""
-    from content_aware_gan_compression_torch.models import BiSeNet, bisenet_widths
-
-    for seed in range(seeds):
-        net = BiSeNet(bisenet_widths(width_scale), device="cpu",
-                      generator=torch.Generator().manual_seed(seed))
-        net = net.to(img_nhwc.device, img_nhwc.dtype).requires_grad_(False).eval()
-        share = mask_share(net, img_nhwc)
-        if 0.02 <= share <= 0.98:
-            return net, seed, share
-    fail(f"no BiSeNet seed in 0..{seeds - 1} parses the teacher's images into a mixed mask")
-
-
 class FixedParse(torch.nn.Module):
     """Stands in for BiSeNet in a Trainer: head-0 logits one-hot in a given
     class map, so that runs in other precisions mask with the same classes."""
@@ -695,30 +661,6 @@ class FixedParse(torch.nn.Module):
     def forward(self, x, data_format="NCHW", heads=1):
         logits = self.one_hot.to(x.dtype)
         return (logits if data_format == "NHWC" else logits.permute(0, 3, 1, 2),)
-
-
-def bisenet_file_state(parser):
-    """``parser``'s state dict in the 79999_iter.pth schema
-    (``num_batches_tracked`` in every batch norm), on the CPU."""
-    sd = {k: v.cpu() for k, v in parser.state_dict().items()}
-    for k in [k for k in sd if k.endswith("running_var")]:
-        sd[k[:-len("running_var")] + "num_batches_tracked"] = torch.tensor(79999)
-    return sd
-
-
-def write_aux_files(work, lpips, parser=None):
-    """``lpips`` and ``parser`` in the files the train CLI reads:
-    torchvision's VGG16 (``features.N.*``), the reference's LPIPS heads
-    (``lin{k}.model.1.weight``) and, with a parser, 79999_iter.pth."""
-    files = {"vgg16.pth": {f"features.{k}": v.cpu() for k, v in lpips.vgg.state_dict().items()},
-             "lpips_lins.pth": {f"lin{k}.model.1.weight": lin.weight.detach().cpu()
-                                for k, lin in enumerate(lpips.lins)}}
-    if parser is not None:
-        files["79999_iter.pth"] = bisenet_file_state(parser)
-    paths = [os.path.join(work, name) for name in files]
-    for path, sd in zip(paths, files.values()):
-        torch.save(sd, path)
-    return paths
 
 
 def drive_train_path(trainer, reals, want_phase, draws0=None):
@@ -836,7 +778,7 @@ def fid_quietly(calc_fid, *stats):
 def eval_phases(g, dev, card, work):
     """FID and PPL at 256px on the full-width generator ``g``: the feature
     stream's and PPL's launches per batch, the card against the CPU, the
-    three evaluation CLIs and the train CLI's in-loop FID, and the rates.
+    three evaluation CLIs, and the rates.
     Returns the kernels line's launch counts of the evaluation path."""
     from content_aware_gan_compression_torch import calc_inception, get_fid, get_ppl
     from content_aware_gan_compression_torch.bench_blur4 import time_ms
@@ -964,7 +906,7 @@ def eval_phases(g, dev, card, work):
                         noise=[n.to(dev) for n in noise]).cpu().numpy()
     replay_err = float(np.abs(on_card - feats[:FID_BATCH]).max())
 
-    # -- 13. eval_cli: the three CLIs on seeded files, and the in-loop FID ------
+    # -- 13. eval_cli: the three CLIs on seeded files ----------------------------
     # A width-1/8 Inception (pool3 dim 256) in the pytorch-fid schema keeps
     # the statistics of 512 images full rank; LPIPS files at full width.
     os.makedirs(work, exist_ok=True)
@@ -998,32 +940,11 @@ def eval_phases(g, dev, card, work):
                                      "--lpips_vgg_ckpt", vgg_file, "--lpips_lins_ckpt",
                                      lins_file, "--device", "cuda"]))
     cli["get_ppl_s"] = round(time.time() - t0, 3)
-    student, teacher = write_train_checkpoints(work, SIZE)
-    root = os.path.join(work, "cli_fid")
-    t0 = time.time()
-    proc = subprocess.run([
-        sys.executable, "-m", "content_aware_gan_compression_torch.train", "--path", cache,
-        "--size", str(SIZE), "--ckpt", student, "--teacher_ckpt", teacher,
-        "--batch_size", str(BATCH), "--iter", "8", "--n_sample", "4",
-        "--val_sample_freq", "100", "--model_save_freq", "3", "--fid_n_sample", "512",
-        "--fid_batch", "64", "--inception_ckpt", inc_file, "--real_stats", stats_file,
-        "--exp_root", root], cwd=REPO, capture_output=True, text=True, timeout=600)
-    cli["train_in_loop_fid_s"] = round(time.time() - t0, 3)
-    if proc.returncode != 0:
-        fail(f"train CLI with in-loop FID rc {proc.returncode}: {proc.stderr[-3000:]}")
-    (exp,) = [os.path.join(root, d) for d in os.listdir(root) if d.startswith("Exp_")]
-    with open(os.path.join(exp, "metrics.jsonl")) as f:
-        fid_recs = [r for r in map(json.loads, f) if "fid" in r]
-    cli["train_fid_records"] = fid_recs
     detail("eval_cli", **cli, inception="width 1/8, seeded, pytorch-fid schema",
-           real="512 seeded uint8 images at 256px",
-           train="11x student, KD-L1, 8 iterations, FID of 512 samples every 3, overlapped")
+           real="512 seeded uint8 images at 256px")
     if not (np.isfinite(cli["fid"]) and cli["fid"] > 0 and np.isfinite(cli["ppl"])
             and cli["ppl"] >= 0):
         fail(f"eval CLIs: {cli}")
-    if [r["iter"] for r in fid_recs] != [3, 6] or not all(np.isfinite(r["fid"])
-                                                        for r in fid_recs):
-        fail(f"train CLI in-loop FID records {fid_recs}, want iterations 3 and 6")
     shutil.rmtree(work)
 
     # -- 12, its CPU side joined -------------------------------------------------
@@ -1290,7 +1211,7 @@ def prune_phases(g, dev, card, work):
     # -- 17. prune_cuda_vs_cpu: 64px, batch 4, against float64; beside phase 18 --
     prune_check = beside(deterministic(prune_vs_float64), dev)
 
-    # -- 18. prune_cli: the prune CLI, then the train CLI on its output --------
+    # -- 18. prune_cli: the prune CLI on a seeded checkpoint ----------------------
     os.makedirs(work, exist_ok=True)
     ckpt = os.path.join(work, "g256_seed0.npz")
     d_sd = Discriminator(DiscriminatorConfig(size=SIZE), device="cpu",
@@ -1325,30 +1246,9 @@ def prune_phases(g, dev, card, work):
                 or not any("takes" in ln for ln in cli[metric]["printed"])
                 or any("WARNING" in ln for ln in cli[metric]["printed"])):
             fail(f"prune CLI ({metric}): {cli[metric]}")
-    cache = os.path.join(work, "ffhq256_seeded.npy")
-    np.save(cache, np.random.RandomState(5).randint(0, 256, (32, SIZE, SIZE, 3), dtype=np.uint8))
-    root = os.path.join(work, "cli_retrain")
-    t0 = time.time()
-    proc = subprocess.run([
-        sys.executable, "-m", "content_aware_gan_compression_torch.train", "--path", cache,
-        "--size", str(SIZE), "--ckpt", cli["content-aware"]["npz"], "--teacher_ckpt", ckpt,
-        "--batch_size", str(BATCH), "--iter", "2", "--n_sample", "4", "--val_sample_freq", "100",
-        "--model_save_freq", "100", "--exp_root", root], cwd=REPO, capture_output=True,
-        text=True, timeout=600)
-    if proc.returncode != 0:
-        fail(f"train CLI on the pruned checkpoint rc {proc.returncode}: {proc.stderr[-3000:]}")
-    (exp,) = [os.path.join(root, d) for d in os.listdir(root) if d.startswith("Exp_")]
-    with open(os.path.join(exp, "metrics.jsonl")) as f:
-        recs = [json.loads(line) for line in f]
-    cli["retrain"] = {"seconds": round(time.time() - t0, 3), "iters": [r["iter"] for r in recs],
-                      "finite": all(np.isfinite(v) for r in recs for v in r.values())}
     detail("prune_cli", **{k: {kk: vv for kk, vv in v.items() if kk != "npz"}
                            for k, v in cli.items()},
-           cut=f"{PRUNE_CLI_SAMPLES} samples of prune.py's 400, for time",
-           retrain_setup="the train CLI: the pruned checkpoint as --ckpt, the full-width one "
-                         "as --teacher_ckpt, KD-L1 (no aux files), 2 iterations")
-    if cli["retrain"]["iters"] != [0, 1] or not cli["retrain"]["finite"]:
-        fail(f"train CLI on the pruned checkpoint: {cli['retrain']}")
+           cut=f"{PRUNE_CLI_SAMPLES} samples of prune.py's 400, for time")
     detail("prune_cuda_vs_cpu", size=64, batch=4, tf32=False, cudnn_deterministic=True,
            **prune_check.result(), beside="prune_cli",
            measure="per layer, largest |a - float64| / max|float64| of the scores",
@@ -2654,14 +2554,16 @@ def dp_two_ranks_phase(dev, work):
     return out
 
 
-def dp_cards_phase(work, cache, student, teacher, aux_files):
-    """``dp_nccl_cards``: where the machine has 2 cards or more, the train
-    CLI under ``torchrun --nproc_per_node=2`` at 256px, bf16 full_kd, global
-    batch 16, for DP_CLI_ITERS iterations: it/s and images/s from rank 0's
-    records (iterations 1 on). None on one card."""
-    nproc, iters = 2, DP_CLI_ITERS
+def dp_cards_phase(work, cache, student, teacher, aux_files, nproc=2, iters=DP_CLI_ITERS):
+    """``dp_nccl_cards``: where the machine has ``nproc`` cards or more, the
+    train CLI under ``torchrun --nproc_per_node=nproc`` at 256px, bf16
+    full_kd, global batch 16, for ``iters`` iterations: from rank 0's records
+    (each iteration's pass-boundary ``train_time``), it/s and images/s over
+    iterations 1 on (the sample grid of iteration 0 falls in 1's span) and,
+    from 32 iterations, over the whole 16-iteration cadences from 16 on
+    (and their single iterations' median). None on fewer cards."""
     if torch.cuda.device_count() < nproc:
-        print("dp_nccl_cards: not run, 1 card", flush=True)
+        print(f"dp_nccl_cards: not run, {torch.cuda.device_count()} card(s)", flush=True)
         return None
     vgg_file, lins_file, parsing_file = aux_files
     root = os.path.join(work, f"cli_dp{nproc}")
@@ -2672,7 +2574,7 @@ def dp_cards_phase(work, cache, student, teacher, aux_files):
            "--n_sample", "4", "--lpips_vgg_ckpt", vgg_file, "--lpips_lins_ckpt", lins_file,
            "--parsing_ckpt", parsing_file, "--exp_root", root]
     t0 = time.time()
-    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=900)
     if proc.returncode != 0:
         fail(f"dp_nccl_cards: torchrun rc {proc.returncode}: {proc.stderr[-3000:]}")
     (exp,) = [os.path.join(root, d) for d in os.listdir(root) if d.startswith("Exp_")]
@@ -2683,10 +2585,54 @@ def dp_cards_phase(work, cache, student, teacher, aux_files):
         fail(f"dp_nccl_cards: records {recs}")
     if f"{nproc} process(es)" not in proc.stdout:
         fail(f"dp_nccl_cards: the CLI did not run {nproc} processes: {proc.stdout[-2000:]}")
-    rate = (len(recs) - 1) / sum(r["train_time"] for r in recs[1:])
-    return {"seconds": round(time.time() - t0, 1), "cards": nproc, "global_batch": BATCH,
-            "iterations": iters, "iterations_per_s": rate, "images_per_s": rate * BATCH,
-            "note": "train_time of iterations 1 on, from rank 0's records"}
+    times = [r["train_time"] for r in recs]
+    rate = (len(recs) - 1) / sum(times[1:])
+    out = {"seconds": round(time.time() - t0, 1), "cards": nproc, "global_batch": BATCH,
+           "iterations": iters, "iterations_per_s": rate, "images_per_s": rate * BATCH,
+           "note": "rank 0's records: train_time is the pass-boundary time; iterations_per_s "
+                   "over iterations 1 on"}
+    if iters >= 32:  # whole cadences of R1 (16) and path length (4) from iteration 16
+        steady = times[16:16 * (iters // 16)]
+        out.update(cadence_iterations=[16, 16 * (iters // 16) - 1],
+                   cadence_iterations_per_s=len(steady) / sum(steady),
+                   cadence_images_per_s=len(steady) / sum(steady) * BATCH,
+                   median_iterations_per_s=1 / float(np.median(steady)))
+    return out
+
+
+DP_CARDS_ITERS = 48  # --dp_cards: iteration 0, then two whole cadences from 16
+
+
+def dp_cards_only(counts):
+    """``python3 chip_smoke.py --dp_cards 1,2,4``: the kernels built, then
+    the seeded 256px files of phases 6 and 8 (the parser picked the same
+    way), then ``dp_cards_phase`` at each card count for DP_CARDS_ITERS
+    iterations; each result a ``dp_nccl_cards`` line."""
+    from content_aware_gan_compression_torch.ops.cuda import build
+    from content_aware_gan_compression_torch.tools.fixtures import teacher_images
+    from content_aware_gan_compression_torch.utils import load_generator
+
+    card = card_line()
+    print(card, flush=True)
+    build.build()
+    work = os.path.join(REPO, "build", "chip_smoke_dp")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    student, teacher = write_train_checkpoints(work, SIZE)
+    cache = os.path.join(work, "ffhq256_seeded.npy")
+    np.save(cache, np.random.RandomState(2).randint(0, 256, (32, SIZE, SIZE, 3), dtype=np.uint8))
+    t = load_generator(teacher, SIZE, device="cuda").eval()
+    parser, _, _ = pick_parser(teacher_images(t, BATCH))
+    aux_files = write_aux_files(work, seeded_lpips(), parser)
+    del t, parser
+    torch.cuda.empty_cache()
+    for n in counts:
+        if torch.cuda.device_count() < n:
+            fail(f"--dp_cards {n}: the machine has {torch.cuda.device_count()} card(s)")
+        detail("dp_nccl_cards", card=card, **dp_cards_phase(work, cache, student, teacher,
+                                                           aux_files, n, DP_CARDS_ITERS))
+    shutil.rmtree(work)
+    return 0
 
 
 # -- the data path, the profiler, the converter and the down conv ---------------
@@ -2700,22 +2646,6 @@ FULL_KD_ITERS_PER_S = 3.6  # bf16 full_kd on an H100 80GB HBM3 at 700 W (PERF.md
 def total_launches(counts, name):
     """A kernel's launches in ``counts``: blur4's forward and backward."""
     return counts["blur4"] + counts["blur4_backward"] if name == "blur4" else counts[name]
-
-
-def write_pngs(folder, side, n, seed):
-    """``n`` seeded 8-bit RGB PNGs of ``side`` pixels, written by ``write_png``
-    (row filter 0)."""
-    from content_aware_gan_compression_torch.utils.logging import write_png
-
-    os.makedirs(folder)
-    rng = np.random.RandomState(seed)
-    for i in range(n):
-        # smooth, photo-like content with noise, so that zlib has work to do
-        yy, xx = np.mgrid[0:side, 0:side] / side
-        base = np.stack([np.sin(6 * xx + i), np.cos(5 * yy - i), np.sin(4 * (xx + yy))], -1)
-        img = 127.5 * (base + 1) + rng.normal(0, 12, (side, side, 3))
-        write_png(os.path.join(folder, f"{i:05d}.png"), img.clip(0, 255).astype(np.uint8))
-    return folder
 
 
 def loader_rate(loader, n_batches):
@@ -3525,34 +3455,132 @@ def path_1024_phases(dev, card, work):
 BENCH_WARMUP, BENCH_ITERS = 9, 32  # bench's defaults are 33 and 64
 
 
-def run_bench():
-    """``python -m content_aware_gan_compression_torch.bench`` with its
-    defaults but a shorter window (BENCH_WARMUP, BENCH_ITERS) in a
-    subprocess: its one JSON line, checked for bench.py's keys (and
-    ``remat`` off, peak memory) and the full objective."""
-    t0 = time.time()
-    proc = subprocess.run([sys.executable, "-m", "content_aware_gan_compression_torch.bench",
-                           "--warmup", str(BENCH_WARMUP), "--iters", str(BENCH_ITERS)],
-                          cwd=REPO, capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        fail(f"bench rc {proc.returncode}: {proc.stderr[-3000:]}")
-    lines = proc.stdout.strip().splitlines()
-    out = json.loads(lines[-1]) if lines else {}
+# cut settings: 48 iterations, the first cadence of 16 left out, a folder of
+# 256px PNGs (decoded per read; phase 26 reads a 512px folder through the
+# resize), a width-1/8 Inception (pool3 256: the host's float64 FID takes
+# seconds at 2048), the train CLI in process (the full runs start one
+# interpreter for each run)
+E2E = dict(iters=48, skip=16, n_images=64, src_size=256, fid_n_sample=256,
+           inception_width_scale=0.125)
+DESCENT = dict(size=64, n_images=256, iters=40, fid_every=20, fid_n_sample=256,
+               prune_n_sample=100, ppl_n_sample=256, inception_width_scale=0.125)
+
+
+def check_bench_line(out):
+    """``bench``'s one JSON line: ``bench.py``'s keys (and ``remat`` off,
+    peak memory) and the full objective."""
     keys = {"metric", "value", "unit", "vs_baseline", "mfu", "objective", "remat",
             "peak_memory_gb"}
-    if (len(lines) != 1 or set(out) != keys or out["objective"] != "full_kd"
+    if (set(out) != keys or out["objective"] != "full_kd"
             or out["metric"] != "retrain_iters_per_sec" or not out["value"] > 0
             or out["remat"] is not False or not out["peak_memory_gb"] > 0):
-        fail(f"bench printed {proc.stdout[-2000:]}")
-    return out, time.time() - t0
+        fail(f"bench printed {out}")
 
 
-def main():
+def e2e_checks(card, work):
+    """25. ``e2e_checks``: the port's two end-to-end tools at cut settings.
+    ``python -m content_aware_gan_compression_torch.tools.e2e_validation``
+    in a subprocess, its train CLI in that process, at 256px, batch 16, bf16
+    full_kd: the train CLI for E2E['iters'] iterations from a folder of
+    E2E['src_size'] PNGs and from a 256px cache, one overlapped FID of 256
+    samples at the middle, the steady rates from E2E['skip'] on, then bench
+    in a fresh interpreter over BENCH_ITERS iterations after BENCH_WARMUP,
+    whose one JSON line (the tool refuses any other output) is this smoke's
+    bench line.
+    ``tools.fid_descent_validation`` in this process with its CLIs in
+    process, the launch counts reset before it and read after: 64px,
+    DESCENT's sizes. Every step must exit cleanly, every rate, FID and PPL be
+    finite and positive, and each kernel launch during the descent; the
+    descent itself is reported, held only in the full run. Returns (bench's
+    line, the e2e tool's seconds of bench, the descent's launch counts)."""
+    from content_aware_gan_compression_torch.ops.cuda import counts, reset_counts
+    from content_aware_gan_compression_torch.tools import fid_descent_validation
+
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    t0 = time.time()
+    argv = [f"--{k}={v}" for k, v in E2E.items()] + [
+        "--workdir", os.path.join(work, "e2e"), "--bench_warmup", str(BENCH_WARMUP),
+        "--bench_iters", str(BENCH_ITERS), "--in_process"]
+    proc = subprocess.run([sys.executable, "-m",
+                           "content_aware_gan_compression_torch.tools.e2e_validation", *argv],
+                          cwd=REPO, capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        fail(f"e2e_validation rc {proc.returncode}: {proc.stderr[-3000:]}")
+    e2e = json.loads(proc.stdout.strip().splitlines()[-1])
+    e2e_s = time.time() - t0
+    check_bench_line(e2e["bench"])
+    rates = {name: {k: src[k] for k in ("window_median_iters_per_s", "median_iters_per_s",
+                                        "mean_iters_per_s", "steady_iters", "wall_s",
+                                        "loader", "image_size")}
+             for name, src in e2e["sources"].items()}
+    for name, src in e2e["sources"].items():
+        fids = [f["fid"] for f in src["fid"]]
+        if not (len(fids) == 1 and all(np.isfinite(v) and v > 0 for v in fids)
+                and all(np.isfinite(src[k]) and src[k] > 0
+                        for k in ("window_median_iters_per_s", "median_iters_per_s",
+                                  "mean_iters_per_s"))
+                and src["steady_iters"] == E2E["iters"] - E2E["skip"]):
+            fail(f"e2e_validation, {name}: {src}")
+
+    t0 = time.time()
+    argv = [f"--{k}={v}" for k, v in DESCENT.items()] + [
+        "--workdir", os.path.join(work, "descent"), "--in_process", "--no-require_descent"]
+    torch.backends.cudnn.allow_tf32 = True  # a fresh process's default, as in the CLIs
+    reset_counts()
+    with open(os.path.join(work, "descent_tool.log"), "w") as log, \
+            contextlib.redirect_stdout(log):
+        descent = fid_descent_validation.main(argv)
+    torch.cuda.synchronize()
+    descent_counts = counts()
+    torch.backends.cudnn.allow_tf32 = False
+    descent_s = time.time() - t0
+    fids = [descent["teacher_fid_noise_floor"], descent["student_fid_iter0"],
+            *(f["fid"] for f in descent["series"])]
+    if (not all(np.isfinite(v) and v > 0 for v in fids + [descent["ppl_pruned_iter0"],
+                                                           descent["ppl_retrained_final"]])
+            or [f["iter"] for f in descent["series"]] != list(range(
+                DESCENT["fid_every"], DESCENT["iters"] + 1, DESCENT["fid_every"]))):
+        fail(f"fid_descent_validation: {descent}")
+    if not all(total_launches(descent_counts, k) > 0
+               for k in ("blur4", "fused_noise_bias_lrelu", "masked_scale")):
+        fail(f"fid_descent_validation launched {descent_counts}")
+    print(f"e2e_checks: train CLI it/s over iterations {E2E['skip']}-{E2E['iters'] - 1} "
+          f"(all their time; the median 16-iteration window) folder "
+          f"{rates['folder']['mean_iters_per_s']:.4f} "
+          f"({rates['folder']['window_median_iters_per_s']:.4f}), cache "
+          f"{rates['cache']['mean_iters_per_s']:.4f} "
+          f"({rates['cache']['window_median_iters_per_s']:.4f}); bench "
+          f"{e2e['bench_iters_per_s']:.4f} iter/s; FID descent (64px) pruned "
+          f"{descent['student_fid_iter0']:.4g} -> {[round(f['fid'], 4) for f in descent['series']]}"
+          f", teacher {descent['teacher_fid_noise_floor']:.4g}", flush=True)
+    detail("e2e_checks", card=card, e2e_seconds=round(e2e_s, 1),
+           descent_seconds=round(descent_s, 1),
+           e2e={**{k: e2e[k] for k in ("value", "bench_iters_per_s", "gap_vs_bench",
+                                       "gap_vs_bench_window", "gap_vs_bench_median",
+                                       "pillow", "iters", "skip", "fid_n_sample")},
+                "sources": rates, "fid": {k: v["fid"] for k, v in e2e["sources"].items()}},
+           descent={k: descent[k] for k in (
+               "teacher_fid_noise_floor", "student_fid_iter0", "series", "descending",
+               "floor_ordering_ok", "ppl_pruned_iter0", "ppl_retrained_final", "seconds",
+               "parser_seed")},
+           descent_launches=descent_counts,
+           note="cut settings; the descent is held only in the tool's full run")
+    return e2e["bench"], e2e["bench_wall_s"], descent_counts
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description="the port's smoke test on the card")
+    p.add_argument("--dp_cards", default=None,
+                   help="only dp_nccl_cards at these card counts, e.g. 1,2,4")
+    args = p.parse_args(argv)
     t_start = time.time()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
               file=sys.stderr)
         return 2
+    if args.dp_cards:
+        return dp_cards_only([int(n) for n in args.dp_cards.split(",")])
     from content_aware_gan_compression_torch.bench_blur4 import blur4_bound, bound, time_ms
     from content_aware_gan_compression_torch.generate import sample_images
     from content_aware_gan_compression_torch.models import Generator, GeneratorConfig, stylegan2
@@ -4025,9 +4053,12 @@ def main():
     sparsity_counts = sparsity_phases(g, dev, card, os.path.join(REPO, "build", "chip_smoke"))
     projector_counts = projector_phases(g, dev, card, os.path.join(REPO, "build", "chip_smoke"))
 
-    # -- 25. the port's bench, bfloat16 by default --------------------------------
-    bench_line, bench_s = run_bench()
-    detail("bench", seconds=round(bench_s, 1), card=card, line=bench_line)
+    # -- 25. e2e_checks: the train CLI's steady rate beside bench, whose line it
+    # gives, and FID descent through the CLIs, both at cut settings ---------------
+    bench_line, bench_s, descent_counts = e2e_checks(card, os.path.join(REPO, "build",
+                                                                        "chip_smoke_e2e"))
+    detail("bench", seconds=round(bench_s, 1), card=card, line=bench_line,
+           note="run by tools.e2e_validation in e2e_checks")
 
     # -- 26-29. the data path, the profiler, the converter, the down conv ----------
     work = os.path.join(REPO, "build", "chip_smoke")
@@ -4057,6 +4088,7 @@ def main():
         out["launches_sparsity_folder"] = total_launches(data_counts["sparsity_folder"], name)
         out["launches_profiler_bf16"] = total_launches(profiler_counts, name)
         out["launches_convert_render"] = total_launches(convert_counts, name)
+        out["launches_e2e_descent"] = total_launches(descent_counts, name)
         if name == "blur4":
             out["launches_down_conv"] = down_counts["blur4"]
         return out

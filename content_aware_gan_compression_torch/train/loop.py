@@ -258,12 +258,20 @@ class Trainer:
         and real statistics) and a checkpoint every ``model_save_freq``
         iterations, then ``event`` where ``event_due``. A step's metrics are
         fetched after the next step is queued, so the fetch does not stall
-        the card. An overlapped FID advances ``fid_batches_per_iter`` batches
-        after each step and is drained before ``run`` returns; its score is
-        logged with the iteration it started at. ``phase_hook`` goes to
-        ``step`` and is also called with 'sample' and the event's name after
-        those. Batches come from ``open_loader``, closed when ``run`` ends.
-        On ranks other than 0 the logger is a ``NullLogger``."""
+        the card. The logged ``train_time`` of an iteration is the time from
+        where the previous iteration's span ended to the start of the next
+        iteration (the JAX loop's pass-boundary time, ``flush_window(...,
+        next_t0=t0)``), or, where the loop flushes at once (before a sample
+        grid, a checkpoint or FID start, an event, and after the last
+        iteration), to that flush; a sample, checkpoint or event falls in
+        the span of the iteration after it. So the times add up to the
+        loop's wall from the first step to the last flush. An overlapped FID
+        advances ``fid_batches_per_iter`` batches after each step and is
+        drained before ``run`` returns; its score is logged with the
+        iteration it started at. ``phase_hook`` goes to ``step`` and is also
+        called with 'sample' and the event's name after those. Batches come
+        from ``open_loader``, closed when ``run`` ends. On ranks other than 0
+        the logger is a ``NullLogger``."""
         if not parallel.is_main():
             logger = NullLogger()
         logger = logger or ExperimentLogger(self.exp_root)
@@ -284,12 +292,17 @@ class Trainer:
         end = cfg.training_iters if not max_iters else min(
             cfg.training_iters, self.start_iter + max_iters)
 
-        def flush(pending):
-            it, t0, keys, packed = pending
+        def flush(pending, until=None):
+            """Logs ``pending``'s iteration with the time from its start to
+            ``until`` (the next iteration's start), or to now, after the
+            fetch; returns where its span ended."""
+            it, start, keys, packed = pending
             vals = packed.tolist()
             last.update(zip(keys, vals[:-1]))
             last["mean_path_avg"] = vals[-1]
-            self.log_iteration(logger, it, time.time() - t0, last)
+            until = time.time() if until is None else until
+            self.log_iteration(logger, it, until - start, last)
+            return until
 
         fid = {"eval": None, "iter": None}
 
@@ -304,7 +317,8 @@ class Trainer:
                              f"{fid['eval'].extra_seconds:.1f}s\n")
                 fid["eval"] = None
 
-        pending = None
+        # flushed: where the last span ended, when the last iteration was flushed at once
+        pending = flushed = None
         for it in range(self.start_iter, end):
             t0 = time.time()
             metrics, mean_path_length = self.step(it, next(loader), mean_path_length,
@@ -314,12 +328,13 @@ class Trainer:
                 [metrics[k].float() for k in keys] + [mean_path_length.float()]))
             fid_tick(cfg.fid_batches_per_iter)
             if pending is not None:
-                flush(pending)
-            pending = (it, t0, keys, packed)
+                flush(pending, t0)
+            pending = (it, t0 if flushed is None else flushed, keys, packed)
+            flushed = None
             event = self.event_due(it)
             if (it % cfg.val_sample_freq == 0 or (it % cfg.model_save_freq == 0 and it > 0)
                     or event):
-                flush(pending)
+                flushed = flush(pending)
                 pending = None
                 if it % cfg.val_sample_freq == 0:
                     with torch.no_grad():  # on every rank: it draws from the stream

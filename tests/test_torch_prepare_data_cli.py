@@ -1,9 +1,9 @@
-"""The port's prepare_data CLI against the JAX package's root script, on 6
-seeded PNGs at sizes "16,32": the uint8 caches and the JPEG folders are
-byte-equal."""
+"""The port's prepare_data CLI against the JAX package's root script (its
+``main`` in this process), on 6 seeded PNGs at sizes "16,32": the uint8
+caches and the JPEG folders are byte-equal."""
 
+import importlib.util
 import os
-import subprocess
 import sys
 
 import numpy as np
@@ -13,6 +13,16 @@ from content_aware_gan_compression_torch import prepare_data
 from torch_train_util import torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _root_script():
+    """The JAX package's root prepare_data.py as a module (its name clashes
+    with the port's)."""
+    spec = importlib.util.spec_from_file_location(
+        "jax_root_prepare_data", os.path.join(REPO, "prepare_data.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 @pytest.fixture(scope="module")
@@ -36,13 +46,12 @@ def _files(root):
 
 
 @pytest.mark.parametrize("fmt", ["uint8", "folders"])
-def test_outputs_equal_the_root_scripts(images, tmp_path, fmt):
+def test_outputs_equal_the_root_scripts(images, tmp_path, fmt, monkeypatch):
     mine, theirs = str(tmp_path / "mine"), str(tmp_path / "theirs")
     args = ["--size", "16,32", "--n_worker", "2", "--format", fmt]
     prepare_data.main(["--out", mine, *args, images])
-    subprocess.run([sys.executable, os.path.join(REPO, "prepare_data.py"), "--out", theirs,
-                    *args, images], check=True, cwd=REPO, capture_output=True, timeout=300,
-                   env={**os.environ, "PYTHONPATH": REPO, "JAX_PLATFORMS": "cpu"})
+    monkeypatch.setattr(sys, "argv", ["prepare_data.py", "--out", theirs, *args, images])
+    _root_script().main()
     got, want = _files(mine), _files(theirs)
     expected = ({"uint8_cache_16.npy", "uint8_cache_32.npy"} if fmt == "uint8" else
                 {f"{s}/{i:05d}.jpg" for s in (16, 32) for i in range(6)})

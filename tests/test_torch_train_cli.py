@@ -1,4 +1,5 @@
-"""``python -m content_aware_gan_compression_torch.train`` on the CPU: two
+"""``python -m content_aware_gan_compression_torch.train`` on the CPU (its
+``main`` in this process): two
 iterations on a tiny uint8 cache from JAX-written student and teacher
 checkpoints write a checkpoint, metrics.jsonl and sample grids, and
 ``--load_train_state`` resumes at the next iteration; with seeded aux-net
@@ -7,9 +8,6 @@ files in the reference's schemas (torchvision's VGG16, the LPIPS heads, a
 handling of absent and unreadable aux-net files."""
 
 import json
-import os
-import subprocess
-import sys
 from pathlib import Path
 
 import numpy as np
@@ -18,19 +16,20 @@ import torch
 
 from content_aware_gan_compression_torch.models import LPIPS, vgg16_widths
 from content_aware_gan_compression_torch.train.__main__ import (
-    aux_nets_from_args, config_from_args, parse_args)
+    aux_nets_from_args, config_from_args, main, parse_args)
 from content_aware_gan_compression_torch.utils import build_bisenet_from_state_dict
 from torch_train_util import N_MLP, SIZE, STYLE, aux_trees, write_checkpoints
 from torch_train_util import torch_threads  # noqa: F401
 
-REPO = Path(__file__).resolve().parents[1]
-
-
-def _cli(*args, cwd):
-    env = {**os.environ, "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "2"}
-    return subprocess.run([sys.executable, "-m", "content_aware_gan_compression_torch.train",
-                           *args], text=True, capture_output=True, timeout=300, cwd=cwd,
-                          env=env)
+@pytest.fixture
+def cli(monkeypatch, capsys):
+    """The CLI's ``main`` run from a working directory; its standard output."""
+    def run(*args, cwd):
+        monkeypatch.chdir(cwd)
+        capsys.readouterr()
+        main([str(a) for a in args])
+        return capsys.readouterr().out
+    return run
 
 
 def _common(tmp_path, student, teacher):
@@ -46,15 +45,14 @@ def _runs(exp_root):
     return sorted(p for p in Path(exp_root).iterdir() if p.name.startswith("Exp_"))
 
 
-def test_cli_trains_saves_and_resumes(tmp_path):
+def test_cli_trains_saves_and_resumes(tmp_path, cli):
     student, teacher = write_checkpoints(tmp_path)
     common = _common(tmp_path, student, teacher)
     first_root, second_root = tmp_path / "first", tmp_path / "second"
-    proc = _cli(*common, "--ckpt", student, "--iter", "2", "--exp_root", str(first_root),
-                cwd=tmp_path)
-    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = cli(*common, "--ckpt", student, "--iter", "2", "--exp_root", str(first_root),
+              cwd=tmp_path)
     # no BiSeNet or VGG weights here: the JAX CLI's warnings, and both terms dropped
-    assert "no VGG weights" in proc.stdout and "no BiSeNet weights" in proc.stdout
+    assert "no VGG weights" in out and "no BiSeNet weights" in out
     (exp,) = _runs(first_root)
     recs = [json.loads(line) for line in (exp / "metrics.jsonl").read_text().splitlines()]
     assert [r["iter"] for r in recs] == [0, 1]
@@ -68,9 +66,8 @@ def test_cli_trains_saves_and_resumes(tmp_path):
     ckpt = exp / "ckpt" / "000001.npz"
     assert ckpt.exists() and not (exp / "ckpt" / "000000.npz").exists()
 
-    proc = _cli(*common, "--ckpt", str(ckpt), "--load_train_state", "True", "--iter", "4",
-                "--exp_root", str(second_root), cwd=tmp_path)
-    assert proc.returncode == 0, proc.stderr[-3000:]
+    cli(*common, "--ckpt", str(ckpt), "--load_train_state", "True", "--iter", "4",
+        "--exp_root", str(second_root), cwd=tmp_path)
     (exp2,) = _runs(second_root)
     recs2 = [json.loads(line) for line in (exp2 / "metrics.jsonl").read_text().splitlines()]
     assert [r["iter"] for r in recs2] == [2, 3]
@@ -96,14 +93,13 @@ def write_aux_files(dirpath):
     return paths
 
 
-def test_cli_trains_the_full_objective_from_aux_files(tmp_path):
+def test_cli_trains_the_full_objective_from_aux_files(tmp_path, cli):
     student, teacher = write_checkpoints(tmp_path)
     vgg, lins, parsing = write_aux_files(tmp_path)
-    proc = _cli(*_common(tmp_path, student, teacher), "--ckpt", student, "--iter", "2",
-                "--lpips_vgg_ckpt", vgg, "--lpips_lins_ckpt", lins, "--parsing_ckpt", parsing,
-                "--exp_root", str(tmp_path / "run"), cwd=tmp_path)
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    assert "WARNING" not in proc.stdout
+    out = cli(*_common(tmp_path, student, teacher), "--ckpt", student, "--iter", "2",
+              "--lpips_vgg_ckpt", vgg, "--lpips_lins_ckpt", lins, "--parsing_ckpt", parsing,
+              "--exp_root", str(tmp_path / "run"), cwd=tmp_path)
+    assert "WARNING" not in out
     (exp,) = _runs(tmp_path / "run")
     recs = [json.loads(line) for line in (exp / "metrics.jsonl").read_text().splitlines()]
     assert [r["iter"] for r in recs] == [0, 1]
@@ -141,12 +137,11 @@ def test_cli_raises_where_aux_weights_exist(tmp_path):
     assert cfg.kd_lpips_lambda == 3.0 and cfg.teacher is None and lpips is parser is None
 
 
-def test_cli_refuses_cuda_without_a_card(tmp_path):
+def test_cli_refuses_cuda_without_a_card(tmp_path, cli):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid here")
     student, teacher = write_checkpoints(tmp_path)
     common = [a for a in _common(tmp_path, student, teacher) if a not in ("--device", "cpu")]
-    proc = _cli(*common, "--ckpt", student, "--iter", "1", "--exp_root", str(tmp_path),
-                cwd=tmp_path)
-    assert proc.returncode != 0
-    assert "device='cpu'" in proc.stderr
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli(*common, "--ckpt", student, "--iter", "1", "--exp_root", str(tmp_path),
+            cwd=tmp_path)

@@ -2,6 +2,7 @@
 discriminator written by the JAX package, and the JAX steps' random draws
 rebuilt from their keys so that both packages see the same draws."""
 
+import contextlib
 import dataclasses
 import hashlib
 import os
@@ -23,19 +24,27 @@ from content_aware_gan_compression_tpu.models.lpips import lpips_init
 from content_aware_gan_compression_tpu.train.steps import _mixing_latents
 from content_aware_gan_compression_tpu.utils import save_checkpoint as jax_save_checkpoint
 
-# torch's intra-op threads in the port's test files: the tier-1 run keeps 6
-# workers on 8 cores, and the JAX tests beside these need the cores more than
-# the port's tiny tensors do
+# torch's intra-op threads and numpy's BLAS threads in the port's test files:
+# the tier-1 run keeps 6 workers on 8 cores, and the JAX tests beside these
+# need the cores more than the port's tiny tensors and float64 FIDs do
 TEST_THREADS = 2
 
 
 @pytest.fixture(scope="module", autouse=True)
 def torch_threads():
-    """Cap torch's intra-op threads for a test module (imported into it, it
-    applies there), and restore the count after it."""
+    """Cap torch's intra-op threads and, where threadpoolctl is installed,
+    the BLAS threads of numpy and scipy for a test module (imported into it,
+    it applies there), and restore both after it."""
     before = torch.get_num_threads()
     torch.set_num_threads(TEST_THREADS)
-    yield
+    try:
+        from threadpoolctl import threadpool_limits
+    except ImportError:
+        blas = contextlib.nullcontext()
+    else:
+        blas = threadpool_limits(TEST_THREADS, user_api="blas")
+    with blas:
+        yield
     torch.set_num_threads(before)
 
 
