@@ -136,16 +136,16 @@ Phases, each of which exits non-zero on failure:
  25. ``e2e_checks``: the port's end-to-end tools at cut settings.
      ``python -m content_aware_gan_compression_torch.tools.e2e_validation
      --in_process`` (one interpreter for its train runs) at 256px, batch 16,
-     bfloat16 full_kd: the train CLI for 48 iterations from a folder of 64
+     bfloat16 full_kd: the train CLI for 32 iterations from a folder of 64
      seeded 256px PNGs and from a 256px uint8 cache, one overlapped in-loop
-     FID of 256 samples (a width-1/8 Inception) at iteration 24, the it/s of
-     iterations 16-47 from each run's metrics.jsonl (over all their time,
-     and the median 16-iteration window), then ``bench`` in an interpreter
-     of its own with its defaults (bfloat16, full_kd) over 32 iterations
+     FID of 256 samples (a width-1/8 Inception) at iteration 16, the it/s of
+     iterations 16-31 from each run's metrics.jsonl (over all their time,
+     and the 16-iteration window), then ``bench`` in an interpreter
+     of its own with its defaults (bfloat16, full_kd) over 16 iterations
      after 9, whose one JSON line is the smoke's bench line; ``tools.fid_descent_validation``
      in this process, its CLIs in process, at 64px (256 teacher samples,
      calc_inception, prune 0.7, get_fid of the teacher and the pruned
-     student, 40 iterations with the FID every 20 over 256 samples, get_ppl
+     student, 20 iterations with the FID every 10 over 256 samples, get_ppl
      before and after), with each kernel's launches counted. Every step
      exits cleanly and every rate, FID and PPL is finite and positive; the
      descent is reported (held in the tool's full run only).
@@ -154,15 +154,24 @@ Phases, each of which exits non-zero on failure:
      and its images/s at 512 -> 256, batch 16, with the host's threads,
      beside the images/s that bfloat16 full_kd takes (the bench's rate x
      16); the loader's float (512px folder) and uint8 (256px folder, cache)
-     rates, each loader's first line naming the decoder; read_png on a
+     rates, each loader's first line naming the decoder;
+     ``tools.bench_loader`` on the 512px folder, the native float path and
+     the uint8 cache, 4 batches each, each a rate > 0; read_png on a
      Paeth-filtered 1024px PNG; ``prepare_data --format uint8`` against
      ``FFHQDataset.load_uint8``; the train CLI from the 256px folder with no
      cache for 5 iterations (11x student, full teacher), launches per phase
      against train_phase_launches; ``SparsityTrainer.run`` from the 512px
      folder for 2 iterations (float NCHW batches through the transform);
- 27. ``train_time_profiler`` at 256px in bfloat16 for 8 iterations: each
-     phase's mean ms and calls (R1 once, path length twice), every launch a
-     bfloat16 one;
+ 27. ``train_time_profiler --trace_dir`` at 256px in bfloat16 for 4
+     iterations: each phase's mean ms and calls (R1 and path length once),
+     every launch a bfloat16 one; the trace through
+     ``tools.trace_op_time``: its launches of blur4 (forward and backward),
+     the epilogue and masked_scale equal the launch counts of the traced
+     iterations, and the device was busy; then ``bench_world`` (27b): with 2
+     cards, ``bench`` (9 + 16 iterations) and ``train_time_profiler`` (4
+     iterations) under ``torchrun --nproc_per_node=2``, each one JSON object
+     from rank 0 with ``world_size`` 2 and finite values; with one card it
+     prints ``bench_world: not run, 1 card(s)``;
  28. ``convert_weight`` on seeded TF variables at 256px, full widths, with
      dlatent_avg: its 16-image render on the card against the same CLI on
      the CPU to 1e-3 (TF32 off, cuDNN deterministic), 6 blur4 and 13
@@ -216,7 +225,8 @@ the ranks' gradients bit-equal, each rank's launches per phase) and
 images/s from rank 0's pass-boundary times; with one card it prints
 ``dp_nccl_cards: not run, 1 card(s)``). ``python3 chip_smoke.py --dp_cards
 1,2,4`` runs that phase alone at each card count for 48 iterations (on a
-machine with that many cards) and nothing else.
+machine with that many cards) and nothing else; ``python3 chip_smoke.py
+--bench_world`` runs only ``bench_world`` (2 cards).
 The checks against the host's CPU (phases 7 and 7b, 12's CPU side, 17
 and 21) run in a thread beside the phase after them (8, 13, 18, 22), which
 drives its CLIs, and report after it; that phase's seconds then include
@@ -2639,7 +2649,7 @@ def dp_cards_only(counts):
 DATA_IMAGES = 64  # seeded PNGs at each of 512px and 256px
 DATA_RATE_BATCHES = 12  # batches of BATCH taken to time a loader
 DATA_TRAIN_ITERS = 5
-PROFILER_ITERS = 8
+PROFILER_ITERS = 4  # R1 and path length once each, traced
 FULL_KD_ITERS_PER_S = 3.6  # bf16 full_kd on an H100 80GB HBM3 at 700 W (PERF.md)
 
 
@@ -2677,6 +2687,7 @@ def data_phases(dev, card, work, bench_line):
     from content_aware_gan_compression_torch.ops.cuda import reset_counts
     from content_aware_gan_compression_torch.train import loop as train_loop
     from content_aware_gan_compression_torch.train.__main__ import main as train_main
+    from content_aware_gan_compression_torch.tools import bench_loader
     from content_aware_gan_compression_torch.train.sparsity import SparsityTrainer
     from content_aware_gan_compression_torch.utils import ExperimentLogger
     from content_aware_gan_compression_torch.utils.logging import read_png, write_png
@@ -2748,15 +2759,29 @@ def data_phases(dev, card, work, bench_line):
     want_decoder = "Pillow" if pillow else "read_png"
     if sum(f"decoder {want_decoder}" in ln for ln in loader_lines) != 2:
         fail(f"the loaders' first lines do not name the decoder {want_decoder}: {loader_lines}")
+    # the loader bench on the 512px folder: the native float path and the
+    # uint8 cache, each a rate
+    t0 = time.time()
+    with contextlib.redirect_stdout(io.StringIO()) as out, \
+            contextlib.redirect_stderr(io.StringIO()):
+        bench_loader.main(["--folder", big, "--size", str(SIZE), "--batch_size", str(BATCH),
+                           "--paths", "native_float,uint8_cache", "--n_batches", "4",
+                           "--num_workers", str(threads)])
+    loader_bench = [json.loads(line) for line in out.getvalue().strip().splitlines()]
+    loader_bench_s = time.time() - t0
     needed = {"pr8_full_kd_bf16": FULL_KD_ITERS_PER_S * BATCH,
               "this_run_bench": bench_line["value"] * BATCH}
     detail("data_path", card=card, host_threads=threads, pillow=pillow,
            png_write_s=round(write_s, 3), native_build_s=build_s, native_prebuilt=prebuilt,
            transform_512_to_256_images_per_s=transform_ips, loader=rates,
            loader_first_lines=loader_lines, read_png_1024px_s=decode_s,
-           prepare_data_uint8_s=prepare_s,
+           prepare_data_uint8_s=prepare_s, bench_loader=loader_bench,
+           bench_loader_s=round(loader_bench_s, 1),
            images_per_s_needed_by_full_kd_bf16=needed,
            transform_over_needed=transform_ips / max(needed.values()))
+    if ([line["path"] for line in loader_bench] != ["native_float", "uint8_cache"]
+            or not all(line.get("img_per_sec", 0) > 0 for line in loader_bench)):
+        fail(f"bench_loader on the 512px folder: {loader_bench}")
 
     # the train CLI from the 256px folder, no cache: launches per phase
     student, teacher = write_train_checkpoints(work, SIZE)
@@ -2851,33 +2876,109 @@ def data_phases(dev, card, work, bench_line):
     return {"train_cli_folder": cli_launches, "sparsity_folder": sparse_launches}
 
 
-def profiler_phase(card):
+def profiler_phase(card, work):
     """27. train_time_profiler at 256px in bfloat16 over PROFILER_ITERS
-    iterations: each phase's mean ms and calls (R1 at iteration 0, path
-    length at 0 and 4), every launch a bfloat16 one. Returns the launches."""
+    iterations with ``--trace_dir``: each phase's mean ms and calls (R1 and
+    path length at iteration 0), every launch a bfloat16 one; then the
+    trace through ``tools.trace_op_time``, whose launches of blur4 (forward
+    and backward), the epilogue and masked_scale must equal the launch
+    counts of the same window (the traced iterations, reset before them and
+    read after), with a busy time > 0. Returns the window's launches."""
     import io
 
     from content_aware_gan_compression_torch import train_time_profiler
     from content_aware_gan_compression_torch.ops.cuda import counts, reset_counts
+    from content_aware_gan_compression_torch.tools import trace_op_time
 
-    reset_counts()
+    shutil.rmtree(work, ignore_errors=True)
+    launched = {}
+
+    @contextlib.contextmanager
+    def window():
+        reset_counts()
+        yield
+        torch.cuda.synchronize()
+        launched.update(counts())
+
     t0 = time.time()
     with contextlib.redirect_stdout(io.StringIO()):
         report = train_time_profiler.main(["--size", str(SIZE), "--batch_size", str(BATCH),
-                                           "--iters", str(PROFILER_ITERS)])
+                                           "--iters", str(PROFILER_ITERS),
+                                           "--trace_dir", work], window=window)
     seconds = time.time() - t0
-    launched = counts()
+    t0 = time.time()
+    lines = []
+    summary = trace_op_time.report(trace_op_time.load_events(work, log=lines.append), top_n=12,
+                                   iters=PROFILER_ITERS, log=lines.append)
+    summary_s = time.time() - t0
     calls = {k: v["calls"] for k, v in report.items() if isinstance(v, dict) and "calls" in v}
+    in_trace = {k: summary["categories"][k][3] for k in ("blur4", "epilogue", "masked_scale")}
+    counted = {"blur4": launched["blur4"] + launched["blur4_backward"],
+               "epilogue": launched["fused_noise_bias_lrelu"],
+               "masked_scale": launched["masked_scale"]}
     detail("profiler_path", card=card, size=SIZE, batch=BATCH, dtype="bfloat16",
            iterations=PROFILER_ITERS, seconds=round(seconds, 1), report=report,
-           launches=launched, note="PyTorch's defaults (cuDNN TF32 on for float32 work)")
+           launches=launched, trace_launches=in_trace, summary_seconds=round(summary_s, 1),
+           busy_ms_per_iter=summary["busy_us"] / PROFILER_ITERS / 1e3,
+           categories_ms_per_iter={k: v[0] / PROFILER_ITERS / 1e3
+                                   for k, v in summary["categories"].items()},
+           summary=lines, note="PyTorch's defaults (cuDNN TF32 on for float32 work)")
+    print("\n".join(lines[:40]), flush=True)
     want_calls = {"data": PROFILER_ITERS, "d_step": PROFILER_ITERS, "d_reg_step": 1,
-                  "g_step": PROFILER_ITERS, "g_reg_step": 2, "ema": PROFILER_ITERS}
+                  "g_step": PROFILER_ITERS, "g_reg_step": 1, "ema": PROFILER_ITERS}
     bf16_only = all(launched[k] == launched[f"{k}_bf16"] for k in
                     ("blur4", "blur4_backward", "fused_noise_bias_lrelu", "masked_scale"))
     if calls != want_calls or not bf16_only or not launched["blur4"]:
         fail(f"train_time_profiler: calls {calls}, want {want_calls}; launches {launched}")
+    if in_trace != counted or not summary["busy_us"] > 0:
+        fail(f"trace_op_time: launches in the trace {in_trace}, counted {counted}, busy "
+             f"{summary['busy_us']} us")
+    shutil.rmtree(work)
     return launched
+
+
+BENCH_WORLD_CARDS = 2
+
+
+def bench_world_phase(card):
+    """27b. ``bench_world``: where the machine has BENCH_WORLD_CARDS cards or
+    more, ``bench`` under ``torchrun --nproc_per_node=2`` (9 + 16
+    iterations, bf16 full_kd at 256px, global batch 16), then
+    ``train_time_profiler`` under the same for 4 iterations: each prints
+    exactly one JSON object, from rank 0, with ``world_size`` 2 and finite
+    values. On fewer cards it prints ``bench_world: not run``."""
+    n = torch.cuda.device_count()
+    if n < BENCH_WORLD_CARDS:
+        print(f"bench_world: not run, {n} card(s)", flush=True)
+        return None
+    torchrun = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                f"--nproc_per_node={BENCH_WORLD_CARDS}", "-m"]
+    out = {}
+    for name, argv in (("bench", ["content_aware_gan_compression_torch.bench", "--warmup", "9",
+                                  "--iters", "16"]),
+                       ("profiler", ["content_aware_gan_compression_torch.train_time_profiler",
+                                     "--iters", "4"])):
+        t0 = time.time()
+        proc = subprocess.run(torchrun + argv, cwd=REPO, capture_output=True, text=True,
+                              timeout=600)
+        if proc.returncode != 0:
+            fail(f"bench_world: {name} under torchrun rc {proc.returncode}: "
+                 f"{proc.stderr[-3000:]}")
+        text = proc.stdout.strip()
+        try:
+            line = json.loads(text)
+        except json.JSONDecodeError:
+            fail(f"bench_world: {name} printed not one JSON object: {text[-2000:]}")
+        numbers = [v for v in line.values() if isinstance(v, (int, float))] + [
+            x for v in line.values() if isinstance(v, dict) for x in v.values()
+            if isinstance(x, (int, float))]
+        if (line.get("world_size") != BENCH_WORLD_CARDS
+                or not all(np.isfinite(v) for v in numbers)
+                or (name == "bench" and len(text.splitlines()) != 1)):
+            fail(f"bench_world: {name} printed {text[-2000:]}")
+        out[name] = {"seconds": round(time.time() - t0, 1), "line": line}
+    detail("bench_world", card=card, cards=BENCH_WORLD_CARDS, **out)
+    return out
 
 
 def tf_generator_vars(size, seed):
@@ -3452,17 +3553,18 @@ def path_1024_phases(dev, card, work):
             "remat64": remat64, "fid_launches": fid_launches}
 
 
-BENCH_WARMUP, BENCH_ITERS = 9, 32  # bench's defaults are 33 and 64
+BENCH_WARMUP, BENCH_ITERS = 9, 16  # bench's defaults are 33 and 64
 
 
-# cut settings: 48 iterations, the first cadence of 16 left out, a folder of
+# cut settings: 32 iterations, the first cadence of 16 left out (one whole
+# cadence is steady, the FID and its checkpoint at its start), a folder of
 # 256px PNGs (decoded per read; phase 26 reads a 512px folder through the
 # resize), a width-1/8 Inception (pool3 256: the host's float64 FID takes
 # seconds at 2048), the train CLI in process (the full runs start one
-# interpreter for each run)
-E2E = dict(iters=48, skip=16, n_images=64, src_size=256, fid_n_sample=256,
+# interpreter for each run); the descent 20 iterations, the FID every 10
+E2E = dict(iters=32, skip=16, n_images=64, src_size=256, fid_n_sample=256,
            inception_width_scale=0.125)
-DESCENT = dict(size=64, n_images=256, iters=40, fid_every=20, fid_n_sample=256,
+DESCENT = dict(size=64, n_images=256, iters=20, fid_every=10, fid_n_sample=256,
                prune_n_sample=100, ppl_n_sample=256, inception_width_scale=0.125)
 
 
@@ -3573,6 +3675,9 @@ def main(argv=None):
     p = argparse.ArgumentParser(description="the port's smoke test on the card")
     p.add_argument("--dp_cards", default=None,
                    help="only dp_nccl_cards at these card counts, e.g. 1,2,4")
+    p.add_argument("--bench_world", action="store_true",
+                   help="only bench_world (bench and train_time_profiler under torchrun on 2 "
+                        "cards)")
     args = p.parse_args(argv)
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -3581,6 +3686,13 @@ def main(argv=None):
         return 2
     if args.dp_cards:
         return dp_cards_only([int(n) for n in args.dp_cards.split(",")])
+    if args.bench_world:
+        from content_aware_gan_compression_torch.ops.cuda import build
+
+        card = card_line()
+        print(card, flush=True)
+        build.build()
+        return 0 if bench_world_phase(card) else 1
     from content_aware_gan_compression_torch.bench_blur4 import blur4_bound, bound, time_ms
     from content_aware_gan_compression_torch.generate import sample_images
     from content_aware_gan_compression_torch.models import Generator, GeneratorConfig, stylegan2
@@ -4063,7 +4175,8 @@ def main(argv=None):
     # -- 26-29. the data path, the profiler, the converter, the down conv ----------
     work = os.path.join(REPO, "build", "chip_smoke")
     data_counts = data_phases(dev, card, work, bench_line)
-    profiler_counts = profiler_phase(card)
+    profiler_counts = profiler_phase(card, os.path.join(REPO, "build", "chip_smoke_profile"))
+    bench_world_phase(card)
     convert_counts = convert_phase(dev, card, work)
     down_counts = down_vs_plain(dev)
 

@@ -290,7 +290,7 @@ class DataLoader:
 
 def data_loader(dataset, batch_size: int, *, seed: int = 0, num_workers: int = 8,
                 prefetch: int = 4, drop_last: bool = True, uint8_hwc: bool = False,
-                shard=None) -> DataLoader:
+                shard=None, native_transform: bool = True) -> DataLoader:
     """Endless [B, 3, H, W] float32 batches in [-1, 1] (default), or with
     ``uint8_hwc`` [B, H, W, 3] uint8 ones, normalized on the device (a 4x
     smaller copy). Each epoch is a fresh permutation of ``seed``'s
@@ -312,7 +312,12 @@ def data_loader(dataset, batch_size: int, *, seed: int = 0, num_workers: int = 8
     ``seed`` and decodes only its rows (a float batch of a folder reads the
     other rows' image headers, to take the whole batch's path). ``world``
     must divide ``batch_size``, and the last partial batch is dropped. Only
-    rank 0 prints."""
+    rank 0 prints.
+
+    ``native_transform=False`` makes float batches image by image through
+    ``FFHQDataset.load`` with Pillow's resize, as the JAX package's loader
+    does when its native library is absent; it needs Pillow (raises
+    without it), and it applies to this loader only."""
     rank, world = shard or (0, 1)
     if batch_size % world or not 0 <= rank < world:
         raise ValueError(f"shard {shard}: a batch of {batch_size} does not split over "
@@ -332,9 +337,13 @@ def data_loader(dataset, batch_size: int, *, seed: int = 0, num_workers: int = 8
         raise ValueError("float batches come from an image folder; read a uint8 cache with "
                          "uint8_hwc=True")
     route = "uint8 [B, H, W, 3]"
-    if not uint8_hwc:
+    if not uint8_hwc and native_transform:
         native = native_loader.build()  # a failed build raises here, not in the thread
         route = f"float32 [B, 3, H, W] through the native transform ({native.name})"
+    elif not uint8_hwc:
+        _need_pil("float batches without the native transform")
+        resize = f"Pillow {dataset.resample} per image"
+        route = "float32 [B, 3, H, W] image by image (native transform not used)"
     if rank == 0:
         rows_note = f" (rows {rows.start}-{rows.stop - 1} on each of {world} ranks)" \
             if world > 1 else ""
@@ -351,15 +360,16 @@ def data_loader(dataset, batch_size: int, *, seed: int = 0, num_workers: int = 8
             futs = [pool.submit(dataset.load_uint8, int(i), np.random.default_rng(int(s)))
                     for i, s in zip(mine, seeds)]
             return np.stack([f.result() for f in futs])
-        raws = [f.result() for f in [pool.submit(dataset.decode, int(i)) for i in mine]]
-        shapes = ({r.shape[:2] for r in raws} if world == 1 else
-                  {dataset.image_size(int(i)) for i in idxs})
-        if len(shapes) == 1:
-            flips = (rng.random(len(idxs)) < 0.5) if dataset.random_flip \
-                else np.zeros(len(idxs))
-            return native_loader.transform_batch(np.stack(raws), dataset.size,
-                                                 flips[rows].astype(np.uint8),
-                                                 num_threads=num_workers)
+        if native_transform:
+            raws = [f.result() for f in [pool.submit(dataset.decode, int(i)) for i in mine]]
+            shapes = ({r.shape[:2] for r in raws} if world == 1 else
+                      {dataset.image_size(int(i)) for i in idxs})
+            if len(shapes) == 1:
+                flips = (rng.random(len(idxs)) < 0.5) if dataset.random_flip \
+                    else np.zeros(len(idxs))
+                return native_loader.transform_batch(np.stack(raws), dataset.size,
+                                                     flips[rows].astype(np.uint8),
+                                                     num_threads=num_workers)
         seeds = rng.integers(0, 2 ** 31, size=len(idxs))[rows]
         futs = [pool.submit(dataset.load, int(i), np.random.default_rng(int(s)))
                 for i, s in zip(mine, seeds)]

@@ -59,6 +59,32 @@ def write_pngs(folder, side, n, seed, workers=8):
     return folder
 
 
+def smooth_noise(i, side, seed):
+    """Image ``i`` of ``seed``: uniform noise blurred by a Gaussian of sigma 4
+    in each channel, uint8 [side, side, 3] (the decode cost of a photo lies
+    between pure noise's and a smooth field's)."""
+    from scipy.ndimage import gaussian_filter
+
+    rng = np.random.default_rng([seed, i])
+    noise = rng.integers(0, 256, (side, side, 3)).astype(np.float32)
+    return gaussian_filter(noise, sigma=(4, 4, 0)).round().clip(0, 255).astype(np.uint8)
+
+
+def write_noise_pngs(folder, side, n, seed, workers=8):
+    """``n`` PNGs of ``smooth_noise`` at ``side`` pixels, written by
+    ``write_png`` in ``workers`` threads."""
+    from ..utils.logging import write_png
+
+    os.makedirs(folder, exist_ok=True)
+
+    def one(i):
+        write_png(os.path.join(folder, f"{i:05d}.png"), smooth_noise(i, side, seed))
+
+    with ThreadPoolExecutor(workers) as pool:
+        list(pool.map(one, range(n)))
+    return folder
+
+
 def write_cache(path, side, n, seed):
     """A uint8 [n, side, side, 3] ``.npy`` cache of ``write_pngs``' kind of
     images drawn at ``side`` (a resize needs Pillow, which the card's

@@ -20,13 +20,26 @@ JAX compiles there; PyTorch runs eagerly, and its first call pays the
 warm-up instead: cuDNN's choice of algorithms, the CUDA kernels' builds and
 the allocator's first requests.
 
+Under ``torchrun --nproc_per_node=N`` (``parallel.process_group``) each
+process is one rank on its card, as the JAX script's mesh over every local
+device: ``--batch_size`` is the global batch, each rank's real rows are
+``parallel.shard_rows`` of the one seeded global batch, the draws split as
+in the ``Trainer``, and the weights are checked equal on every rank. A JAX
+fence waits for every device, so each phase is timed fence to fence on each
+rank and the report's ``mean_ms`` (and ``compile_s``) is each phase's
+maximum over the ranks (a ``MAX`` all-reduce); ``calls`` is unchanged.
+Rank 0 prints the one report and adds ``world_size``; without torchrun the
+report is one process's, as before.
+
 ``--trace_dir`` writes a ``torch.profiler`` Chrome trace of the timed
-iterations there. ``--dtype`` is bfloat16 by default, as in the JAX script.
-``--remat`` checkpoints the student's synthesis blocks and D's res-blocks
-(``TrainConfig.remat``), as the JAX script's flag does. Prints one
-JSON object: ``compile_s``, then each phase's ``mean_ms`` and ``calls``,
-then ``amortized_iter_ms``. Runs on ``cuda`` unless ``--device cpu`` is
-given.
+iterations there, with the ops' input shapes (``record_shapes``, which
+``tools/trace_op_time.py`` reads): ``train_time_profile.json`` in one
+process, ``train_time_profile_rank<r>.json`` on each rank under torchrun.
+``--dtype`` is bfloat16 by default, as in the JAX script. ``--remat``
+checkpoints the student's synthesis blocks and D's res-blocks
+(``TrainConfig.remat``), as the JAX script's flag does. Prints one JSON
+object: ``compile_s``, then each phase's ``mean_ms`` and ``calls``, then
+``amortized_iter_ms``. Runs on ``cuda`` unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -52,20 +65,31 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def main(argv=None):
-    """Prints and returns the report."""
+def main(argv=None, window=None):
+    """Prints the report on rank 0 and returns it on every rank.
+    ``window``, if given, is a context manager entered around the timed
+    iterations only (inside the trace)."""
     args = parse_args(argv)
-    import torch
+    from . import parallel
 
+    with parallel.process_group(args.device) as device:
+        return _profile(args, device, window)
+
+
+def _profile(args, device, window):
+    import contextlib
+
+    import torch
+    import torch.distributed as dist
+
+    from . import parallel
     from .bench import student_shape
     from .models import Discriminator, DiscriminatorConfig, Generator, GeneratorConfig
     from .train import TrainConfig
     from .train.steps import (
         d_reg_step, d_step, draw_d, draw_g, draw_g_reg, ema_accumulate, g_reg_step, g_step,
         make_optimizers, prepare_real, torch_dtype)
-    from .utils.runtime import resolve_device
 
-    device = resolve_device(args.device)
     cfg = TrainConfig(generated_img_size=args.size, batch_size=args.batch_size,
                       compute_dtype=args.dtype, content_aware_KD=False, kd_lpips_lambda=0.0,
                       remat=args.remat)
@@ -79,10 +103,13 @@ def main(argv=None):
     d = Discriminator(DiscriminatorConfig(size=args.size), device=device, generator=seeded(2))
     g_ema = Generator(g.config, device=device).requires_grad_(False)
     g_ema.load_state_dict(g.state_dict())
+    for net in (g, teacher, d, g_ema):
+        parallel.broadcast_module(net)
     g_opt, d_opt = make_optimizers(g, d, cfg)
     gen = torch.Generator(device).manual_seed(0)
-    real = prepare_real(torch.randint(0, 256, (args.batch_size, args.size, args.size, 3),
-                                      generator=seeded(7), dtype=torch.uint8), device)
+    real = prepare_real(parallel.shard_rows(torch.randint(
+        0, 256, (args.batch_size, args.size, args.size, 3), generator=seeded(7),
+        dtype=torch.uint8)), device)
     state = {"mpl": torch.zeros((), device=device)}
 
     def sync():
@@ -116,28 +143,41 @@ def main(argv=None):
 
         activities = [ProfilerActivity.CPU] + (
             [ProfilerActivity.CUDA] if device.type == "cuda" else [])
-        trace = profile(activities=activities)
+        trace = profile(activities=activities, record_shapes=True)
         trace.__enter__()
     try:
-        for i in range(args.iters):
-            due = {"d_reg_step": i % cfg.d_reg_freq == 0, "g_reg_step": i % cfg.g_reg_freq == 0}
-            for name in phases:
-                if due.get(name, True):
-                    times[name].append(timed(name))
+        with window() if window is not None else contextlib.nullcontext():
+            for i in range(args.iters):
+                due = {"d_reg_step": i % cfg.d_reg_freq == 0,
+                       "g_reg_step": i % cfg.g_reg_freq == 0}
+                for name in phases:
+                    if due.get(name, True):
+                        times[name].append(timed(name))
     finally:
         if trace is not None:
             trace.__exit__(None, None, None)
     if trace is not None:
         os.makedirs(args.trace_dir, exist_ok=True)
-        trace.export_chrome_trace(os.path.join(args.trace_dir, "train_time_profile.json"))
+        name = (f"train_time_profile_rank{parallel.rank()}.json" if parallel.active()
+                else "train_time_profile.json")
+        trace.export_chrome_trace(os.path.join(args.trace_dir, name))
 
-    report = {"compile_s": {k: round(v, 2) for k, v in compile_s.items()}}
-    for name, ts in times.items():
-        if ts:
-            report[name] = {"mean_ms": round(1000 * sum(ts) / len(ts), 2), "calls": len(ts)}
+    # each phase's figure is the slowest rank's (one MAX all-reduce)
+    names = [n for n, ts in times.items() if ts]
+    values = [compile_s[n] for n in compile_s] + [sum(times[n]) / len(times[n]) for n in names]
+    if parallel.active():
+        packed = torch.tensor(values, dtype=torch.float64, device=device)
+        dist.all_reduce(packed, op=dist.ReduceOp.MAX)
+        values = packed.tolist()
+    report = {"compile_s": {k: round(v, 2) for k, v in zip(compile_s, values)}}
+    means = dict(zip(names, values[len(compile_s):]))
+    for name in names:
+        report[name] = {"mean_ms": round(1000 * means[name], 2), "calls": len(times[name])}
     report["amortized_iter_ms"] = round(
-        1000 * sum(sum(ts) for ts in times.values()) / args.iters, 2)
-    print(json.dumps(report, indent=2))
+        1000 * sum(means[n] * len(times[n]) for n in names) / args.iters, 2)
+    if parallel.active():
+        report["world_size"] = parallel.world_size()
+    parallel.main_print(json.dumps(report, indent=2))
     return report
 
 

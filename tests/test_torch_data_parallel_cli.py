@@ -23,7 +23,8 @@ import torch
 from content_aware_gan_compression_torch import parallel
 from content_aware_gan_compression_torch.data import FFHQDataset, data_loader, open_dataset
 from content_aware_gan_compression_torch.train.__main__ import main as train_main
-from torch_dp_util import fid_streams, fid_streams_and_sparsity_run, sparsity_run, spawn
+from torch_dp_util import (
+    THREAD_VARS, WORKER_THREADS, fid_streams, fid_streams_and_sparsity_run, sparsity_run, spawn)
 from torch_eval_util import inception_tree, write_fid_inception
 from torch_train_util import N_MLP, SIZE, STYLE, train_kw, write_checkpoints
 from torch_train_util import torch_threads  # noqa: F401
@@ -260,7 +261,8 @@ def test_train_cli_under_torchrun_writes_one_log_and_checkpoint(train_files, tmp
             "--real_stats", train_files["stats"], "--fid_n_sample", "8", "--fid_batch", "4",
             "--device", "cpu"]
     two_root = tmp_path / "two"
-    env = {**os.environ, "PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    env = {**os.environ, "PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH", ""),
+           **dict.fromkeys(THREAD_VARS, str(WORKER_THREADS))}  # each rank's thread cap
     proc = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=2",
          "-m", "content_aware_gan_compression_torch.train", *args, "--exp_root",

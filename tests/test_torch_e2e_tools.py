@@ -31,7 +31,8 @@ from content_aware_gan_compression_torch.tools.fixtures import (
     mask_share, scaled_net_shape, teacher_images)
 from content_aware_gan_compression_torch.utils import (
     build_discriminator_from_state_dict, load_checkpoint, load_generator)
-from torch_train_util import torch_threads  # noqa: F401
+from torch_dp_util import capped_children
+from torch_train_util import TEST_THREADS, torch_threads  # noqa: F401
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from tools import e2e_validation as jax_e2e  # noqa: E402  (the JAX round's tool; no JAX import)
@@ -50,12 +51,14 @@ def _argv(args):
 def e2e(tmp_path_factory):
     """One pass of the e2e tool: 4 iterations from a 32px PNG folder and from
     a 16px cache, R1 and path length every 2, steady from iteration 1 (one
-    whole window of 2), the FID at 2; bench 1 + 1."""
+    whole window of 2), the FID at 2; bench 1 + 1, in a process of its own
+    that takes this module's thread cap."""
     work = tmp_path_factory.mktemp("e2e")
-    result = e2e_validation.main(_argv([
-        "--workdir", work, "--iters", 4, "--skip", 1, "--n_images", 8, "--src_size", 32,
-        "--fid_n_sample", 4, "--bench_warmup", 1, "--bench_iters", 1,
-        "--no-bench_full_objective", "--d_reg_every", 2, "--g_reg_every", 2, *NETS]))
+    with capped_children(TEST_THREADS):
+        result = e2e_validation.main(_argv([
+            "--workdir", work, "--iters", 4, "--skip", 1, "--n_images", 8, "--src_size", 32,
+            "--fid_n_sample", 4, "--bench_warmup", 1, "--bench_iters", 1,
+            "--no-bench_full_objective", "--d_reg_every", 2, "--g_reg_every", 2, *NETS]))
     return work, result
 
 

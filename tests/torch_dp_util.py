@@ -4,15 +4,31 @@ so pytest-xdist workers do not collide), runs a worker function on each
 rank and returns each rank's result. The workers import torch and the port
 only; the JAX references run in the test's own process."""
 
+import contextlib
 import os
 
 import numpy as np
+import pytest
 import torch
 import torch.multiprocessing as mp
 
 from content_aware_gan_compression_torch import parallel
 
 WORKER_THREADS = 1
+# what a child process's thread pools read at start: torch's intra-op pool
+# and numpy's and scipy's BLAS
+THREAD_VARS = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")
+
+
+@contextlib.contextmanager
+def capped_children(threads):
+    """Every process started inside takes ``threads`` threads in each of
+    its pools (the tier-1 run keeps 6 test workers on 8 cores: an uncapped
+    child's 8 intra-op threads spin against theirs)."""
+    with pytest.MonkeyPatch.context() as mp_env:
+        for var in THREAD_VARS:
+            mp_env.setenv(var, str(threads))
+        yield
 
 
 def _entry(rank, world, store, out_dir, fn, args):
@@ -33,7 +49,8 @@ def spawn(fn, world, tmp_dir, *args):
     store = os.path.join(tmp_dir, "store")
     if os.path.exists(store):
         os.remove(store)
-    mp.spawn(_entry, args=(world, store, tmp_dir, fn, args), nprocs=world, join=True)
+    with capped_children(WORKER_THREADS):
+        mp.spawn(_entry, args=(world, store, tmp_dir, fn, args), nprocs=world, join=True)
     return [torch.load(os.path.join(tmp_dir, f"rank{r}.pt"), weights_only=False)
             for r in range(world)]
 
@@ -190,3 +207,64 @@ def sparsity_run(kw, opts, exp_root, iters):
         with open(os.path.join(logger.exp_dir, "metrics.jsonl")) as f:
             records = [json.loads(line) for line in f]
     return {"net_shape": tuple(tr.g.config.net_shape), "records": records, "g": state(tr.g)}
+
+
+def bench_and_profiler(bench_argv, profiler_argv, slow_ema_rank, slow_s, peak, reg_every):
+    """``bench.main(bench_argv)`` and then ``train_time_profiler.main(
+    profiler_argv)`` on this rank, stdout captured: each one's return and
+    printed text; for bench also the uint8 rows it prepared and G, D and
+    g_ema after it. bench's peak is ``peak`` TFLOP/s for every type, and its
+    R1 and path length run every ``reg_every`` iterations (its traced
+    cadence is that long). In the profiler the EMA phase of rank
+    ``slow_ema_rank`` sleeps ``slow_s`` more each call."""
+    import contextlib as ctx
+    import functools
+    import io
+    import time
+
+    from content_aware_gan_compression_torch import bench, train, train_time_profiler
+    from content_aware_gan_compression_torch.train import steps
+
+    bench.PEAK_TFLOPS.update(dict.fromkeys(bench.PEAK_TFLOPS, peak))
+    seen = {}
+    prepare, ema, d_step = steps.prepare_real, steps.ema_accumulate, steps.d_step
+
+    def spy_prepare(x, device):
+        seen["real"] = x.clone()
+        return prepare(x, device)
+
+    def spy_ema(g_ema, g, *a, **kw):
+        seen["g_ema"], seen["g"] = g_ema, g
+        return ema(g_ema, g, *a, **kw)
+
+    def spy_d(g, d, *a, **kw):
+        seen["d"] = d
+        return d_step(g, d, *a, **kw)
+
+    out = {}
+    config = train.TrainConfig
+    steps.prepare_real, steps.ema_accumulate, steps.d_step = spy_prepare, spy_ema, spy_d
+    train.TrainConfig = functools.partial(config, d_reg_freq=reg_every, g_reg_freq=reg_every)
+    try:
+        text = io.StringIO()
+        with ctx.redirect_stdout(text):
+            out["bench"] = bench.main(bench_argv)
+        train.TrainConfig = config
+        out["bench_stdout"] = text.getvalue()
+        out.update(real=seen["real"], g=state(seen["g"]), d=state(seen["d"]),
+                   g_ema=state(seen["g_ema"]))
+
+        def slow_ema(g_ema, g, *a, **kw):
+            if parallel.rank() == slow_ema_rank:
+                time.sleep(slow_s)
+            return ema(g_ema, g, *a, **kw)
+
+        steps.ema_accumulate = slow_ema
+        text = io.StringIO()
+        with ctx.redirect_stdout(text):
+            out["profiler"] = train_time_profiler.main(profiler_argv)
+        out["profiler_stdout"] = text.getvalue()
+    finally:
+        steps.prepare_real, steps.ema_accumulate, steps.d_step = prepare, ema, d_step
+        train.TrainConfig = config
+    return out
