@@ -1,0 +1,8 @@
+"""conv_ms.infer: device ms per iteration (or batch) of the profiled window's
+convolution kernels."""
+
+from benchmark.lib import readers
+
+
+def read(data):
+    return readers.category_ms(data, readers.CONV)

@@ -1,0 +1,8 @@
+"""peak_gb.infer: the run's largest ``torch.cuda.max_memory_allocated`` over the
+ranks, in GB."""
+
+from benchmark.lib import readers
+
+
+def read(data):
+    return readers.peak_gb(data)
